@@ -1,0 +1,1 @@
+"""Dist of the PyTorch port (counterpart of ``repro.dist``)."""

@@ -1,0 +1,365 @@
+"""SPARQ-SGD over ONE flat node-stacked parameter buffer on one device
+(counterpart of ``repro/dist/sparq_dist.py``).
+
+The model tree is raveled once into a contiguous ``(n, D_pad)`` float32
+buffer, one row per node; ``D_pad`` pads the model dimension ``D`` to whole
+1024-element kernel tiles, and the ``[D, D_pad)`` tail is zero and stays zero.
+The ravel order is the reference's ``jax.tree.flatten`` order (dict keys
+sorted at every level), so the 1024-element tiles, and with them the
+selection and the bits, are the reference's. Per sync index (every H steps):
+
+    x^{t+1/2} = x^t - eta_t (m^t or g^t)                       (local step)
+    trig_i    = [ ||x_i^{t+1/2} - x_hat_i||^2 > c_t eta_t^2 ]  (row norms)
+    q_i       = trig_i * BlockSignTopK(x_i^{t+1/2} - x_hat_i)  (one launch)
+    x_hat'    = x_hat + q                                      (line 13)
+    x^{t+1}   = x^{t+1/2} + gamma (W x_hat' - x_hat')          (line 15)
+
+The whole node ensemble lives on the one device. Memory is the design
+constraint: at Qwen1.5-0.5B width each ``(4, D_pad)`` float32 buffer is
+9.9 GB, so at most five are live (params, x_hat, grads, the kernel's q, and
+the optimizer's momentum when there is one) and everything else is done in
+place or in column chunks:
+
+* gradients are written straight into the grads buffer: each node's leaves
+  are detached views of its params row whose ``.grad`` is the matching view
+  of the grads row, so backward accumulates in place;
+* the optimizer steps in place and leaves the grads buffer free, which then
+  holds ``diff``;
+* the trigger norms, the x_hat update and the mixing run over column chunks
+  (every expression is elementwise per column, so chunking keeps the
+  reference's float32 expressions);
+* the kernel runs in its ensemble mode on ``diff`` viewed as tiles: no zero
+  x_hat and no x_hat_new are allocated.
+
+Train state is a dict of tensors updated in place; ``train_step`` returns
+the same dict. Not ported yet, each raising when asked for: fault injection,
+time-varying plans, and the generic ``compressor=`` / global ``TopFrac``
+path without the kernel (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import (Any, Callable, Dict, Iterator, Mapping, Optional, Tuple,
+                    Union)
+
+import torch
+
+from repro_torch.core import bits as bits_mod
+from repro_torch.core.compression import BlockTopFrac, Compressor
+from repro_torch.core.schedule import LRSchedule, decaying, is_sync
+from repro_torch.core.sparq import gossip_mix, sync_message_bits, trigger_mask
+from repro_torch.core.topology import (GossipPlan, Topology, circulant_row,
+                                       make_plan)
+from repro_torch.core.triggers import ThresholdSchedule, zero
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.sign_topk import BLOCK
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.transformer import init_params, lm_loss, param_shapes
+from repro_torch.optim.sgd import Optimizer, resolve_optimizer
+
+State = Dict[str, Any]
+Slice = Tuple[Tuple[str, ...], int, int, Tuple[int, ...]]
+COLUMN_CHUNK = 1 << 22   # columns per chunk of the sync's elementwise passes
+
+
+@dataclasses.dataclass(frozen=True)
+class DistSparqConfig:
+    """Runtime knobs of the flat-buffer engine (the reference's fields; the
+    ones whose features wait raise in ``build_sparq``)."""
+
+    H: int = 1                       # gap(I_T): sync every H steps
+    variant: str = "dense"           # dense | shift (alias ring): mixing impl
+    frac: float = 1.0                # SignTopK fraction per 1024-tile
+    use_kernel: bool = False         # the fused blockwise kernel path
+    threshold: ThresholdSchedule = zero()
+    lr: LRSchedule = decaying(0.5, 10.0)
+    momentum: float = 0.0            # shorthand for optimizer=momentum(beta)
+    nesterov: bool = False
+    optimizer: Optional[Optimizer] = None  # local-update rule; None -> sgd()
+    gamma: Optional[float] = None    # None -> gamma* from Lemma 6
+    microbatches: int = 1            # grad accumulation within a node
+    xhat_dtype: str = "float32"      # public-estimate storage dtype
+    topology: Union[str, Topology, None] = None   # kind string, Topology,
+                                                  # or None -> "ring"
+    deg: int = 4                     # expander degree (kind strings only)
+    mixing: str = "uniform"          # uniform | metropolis (kind strings)
+    dynamic: str = "none"            # time-varying plans: not ported yet
+    topo_seed: int = 0               # graph sampling seed
+    plan: Optional[GossipPlan] = None  # full override (static plans only)
+    compressor: Optional[Compressor] = None  # generic path: not ported yet
+    faults: Optional[Any] = None     # fault injection: not ported yet
+
+    def resolved_optimizer(self) -> Optimizer:
+        return resolve_optimizer(self.optimizer, self.momentum,
+                                 nesterov=self.nesterov)
+
+    def resolved_plan(self, n: int) -> GossipPlan:
+        """The static communication plan at ensemble size ``n``."""
+        if self.plan is not None:
+            if self.plan.n != n:
+                raise ValueError(f"plan {self.plan.name!r} has n="
+                                 f"{self.plan.n} but the ensemble has {n}")
+            if self.plan.R != 1:
+                raise NotImplementedError(
+                    "time-varying gossip plans are not ported yet "
+                    "(ROADMAP.md, dynamic plans)")
+            return self.plan
+        if isinstance(self.topology, Topology):
+            if self.topology.n != n:
+                raise ValueError(
+                    f"topology {self.topology.name!r} has n="
+                    f"{self.topology.n} but the ensemble has {n}")
+            return GossipPlan.from_topology(self.topology)
+        return make_plan(self.topology or "ring", n, deg=self.deg,
+                         seed=self.topo_seed, mixing=self.mixing,
+                         dynamic=self.dynamic)
+
+    def effective_compressor(self) -> BlockTopFrac:
+        """The operator the sync path applies: the blockwise kernel's."""
+        if self.compressor is not None or not self.use_kernel:
+            raise NotImplementedError(
+                "only use_kernel=True (the blockwise SignTopK kernel) is "
+                "ported; the generic compressor= / global TopFrac path is "
+                "not yet (ROADMAP.md, compressors and the generic flat-buffer "
+                "path)")
+        return BlockTopFrac(frac=self.frac)
+
+    def resolved_gamma(self, plan: GossipPlan, d: int) -> float:
+        if self.gamma is not None:
+            return float(self.gamma)
+        om = self.effective_compressor().omega(d)
+        return float(plan.gamma_star(max(om, 1e-3)))
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) in ``jax.tree.flatten`` order: dict keys sorted."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _flatten_spec(shapes: Mapping[str, Any]) -> Tuple[Tuple[Slice, ...], int]:
+    """Static ravel plan: per-leaf (path, offset, size, shape), and D."""
+    slices, off = [], 0
+    for path, shape in _leaves(shapes):
+        size = math.prod(shape)
+        slices.append((path, off, size, tuple(shape)))
+        off += size
+    return tuple(slices), off
+
+
+def _set(tree: Dict[str, Any], path: Tuple[str, ...], value: Any) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _get(tree: Mapping[str, Any], path: Tuple[str, ...]) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _column_chunks(width: int) -> Iterator[slice]:
+    for lo in range(0, width, COLUMN_CHUNK):
+        yield slice(lo, min(width, lo + COLUMN_CHUNK))
+
+
+def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
+                device: Union[str, torch.device, None] = "cuda",
+                on_sync: Optional[Callable[[torch.Tensor], None]] = None
+                ) -> Tuple[Callable[..., State], Callable, Dict[str, Any]]:
+    """Build the flat-buffer engine for one model on one device.
+
+    Returns ``(init_fn, train_step, pshape)``:
+
+    * ``init_fn(seed=0, params=None) -> state``: identical x^0 on every
+      node (random weights from ``seed``, or the given parameter tree, e.g.
+      ``params_from_jax``), x_hat = 0;
+    * ``train_step(state, batch) -> (state, metrics)``: one Algorithm 1
+      step, updating ``state`` in place; ``batch`` holds ``(n, per_node,
+      seq)`` integer arrays or tensors ``tokens`` and ``labels``;
+    * ``pshape``: the single-node parameter tree as nested dicts of shapes.
+
+    The ensemble size is ``n = cfg.n_nodes``. ``on_sync``, when given, is
+    called with the ``(n, D_pad)`` float32 ``diff`` at every sync before it
+    is compressed (for inspection; it must not modify it).
+    """
+    dev = resolve_device(device)
+    if dcfg.faults is not None:
+        raise NotImplementedError(
+            "fault injection is not ported yet (ROADMAP.md, faults and "
+            "baselines)")
+    n = int(cfg.n_nodes)
+    plan = dcfg.resolved_plan(n)
+    comp = dcfg.effective_compressor()
+    opt = dcfg.resolved_optimizer()
+    H, mbs = int(dcfg.H), int(dcfg.microbatches)
+    xhat_dt = dtype_of(dcfg.xhat_dtype)
+    k_b = comp._k_b()
+    if dcfg.variant not in ("dense", "ring", "shift"):
+        raise ValueError(f"unknown variant {dcfg.variant!r}")
+    # a static circulant W (ring, complete, ...) turns W x - x into a few row
+    # rolls; anything else, or n <= 2, mixes with the dense product
+    shift_row = (circulant_row(plan.ws[0])
+                 if dcfg.variant in ("ring", "shift") and n > 2 else None)
+    shift_terms = ([(s, float(shift_row[s])) for s in range(1, n)
+                    if shift_row[s] > 0.0]
+                   if shift_row is not None else None)
+    W = torch.tensor(plan.ws[0], dtype=torch.float32, device=dev)
+    deg = torch.tensor(plan.degrees[0], dtype=torch.float32, device=dev)
+
+    pshape = param_shapes(cfg)
+    slices, D = _flatten_spec(pshape)
+    D_pad = max(1, -(-D // BLOCK)) * BLOCK
+    gamma = dcfg.resolved_gamma(plan, D)
+    payload = float(comp.bits(D))
+
+    def unravel(flat: torch.Tensor) -> Dict[str, Any]:
+        """One node row (D_pad,) or (D,) -> model tree of views."""
+        tree: Dict[str, Any] = {}
+        for path, off, size, shape in slices:
+            _set(tree, path, flat[off:off + size].view(shape))
+        return tree
+
+    def ravel(tree: Mapping[str, Any]) -> torch.Tensor:
+        """Model tree -> (D,) float32 flat vector, in the ravel plan's order."""
+        return torch.cat([_get(tree, path).reshape(-1).to(torch.float32)
+                          for path, _, _, _ in slices])
+
+    def init_fn(seed: int = 0, params: Optional[Mapping[str, Any]] = None
+                ) -> State:
+        if params is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            params = init_params(cfg, gen)
+        flat = torch.zeros((n, D_pad), dtype=torch.float32, device=dev)
+        for path, off, size, _ in slices:
+            flat[0, off:off + size].copy_(_get(params, path).reshape(-1))
+        flat[1:].copy_(flat[0].expand(n - 1, D_pad))
+        total, comp_ = bits_mod.acc_init(dev)
+        return {"params": flat,
+                "x_hat": torch.zeros((n, D_pad), dtype=xhat_dt, device=dev),
+                "opt": opt.init(flat), "t": 0, "bits": total,
+                "bits_c": comp_, "sync_rounds": 0,
+                "triggers": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def node_losses_grads(params: torch.Tensor, batch: Mapping[str, Any],
+                          grads: torch.Tensor) -> torch.Tensor:
+        """Per-node loss; per-node gradients accumulate into ``grads``."""
+        losses = torch.zeros((n,), dtype=torch.float32, device=dev)
+        per = batch["tokens"].shape[1]
+        if per % mbs:
+            raise ValueError(f"batch_per_node {per} is not a multiple of "
+                             f"microbatches {mbs}")
+        m = per // mbs
+        def leaf(i: int, lo: int, size: int, shape) -> torch.Tensor:
+            out = params[i, lo:lo + size].view(shape).detach()
+            out.requires_grad_(True)
+            out.grad = grads[i, lo:lo + size].view(shape)
+            return out
+
+        L = cfg.n_layers
+        for i in range(n):
+            tree: Dict[str, Any] = {"seg0": [{} for _ in range(L)]}
+            for path, off, size, shape in slices:
+                if path[0] != "seg0":
+                    _set(tree, path, leaf(i, off, size, shape))
+                    continue
+                # one leaf per layer of the stack
+                per = size // L
+                for li in range(L):
+                    _set(tree["seg0"][li], path[1:],
+                         leaf(i, off + li * per, per, shape[1:]))
+            for j in range(mbs):
+                sub = {k: v[i, j * m:(j + 1) * m] for k, v in batch.items()}
+                loss = lm_loss(cfg, tree, sub)[0]
+                loss.backward()
+                losses[i] += loss.detach()
+        if mbs > 1:
+            losses.div_(mbs)
+            grads.div_(mbs)
+        return losses
+
+    def mix_term(x: torch.Tensor) -> torch.Tensor:
+        """Consensus term (W x - x) of an (n, chunk) float32 block."""
+        if shift_terms is not None:
+            # (W x)_i = sum_s c_s x_{(i+s) mod n}
+            acc = (float(shift_row[0]) - 1.0) * x
+            for s, c_s in shift_terms:
+                acc = acc + c_s * torch.roll(x, -s, dims=0)
+            return acc
+        return gossip_mix(W, x)
+
+    def sync(state: State, diff: torch.Tensor, eta: torch.Tensor) -> None:
+        params, x_hat = state["params"], state["x_hat"]
+        c_t = dcfg.threshold(state["t"])
+        sq = torch.zeros((n,), dtype=torch.float32, device=dev)
+        for c in _column_chunks(D_pad):
+            d = torch.sub(params[:, c], x_hat[:, c].to(torch.float32),
+                          out=diff[:, c])
+            sq += (d * d).sum(dim=1)
+        trig = trigger_mask(sq, c_t, eta)
+        trigf = trig.to(torch.float32)[:, None]
+        if on_sync is not None:
+            on_sync(diff)
+        q = kernel_ops.sign_topk_ensemble(diff, k_b)        # (n, D_pad)
+        for c in _column_chunks(D_pad):
+            xe_new = (x_hat[:, c].to(torch.float32)
+                      + q[:, c] * trigf).to(xhat_dt)          # lines 11, 13
+            x_hat[:, c] = xe_new
+            params[:, c] += gamma * mix_term(xe_new.to(torch.float32))
+        del q
+        state["bits"], state["bits_c"] = bits_mod.acc_add(
+            state["bits"], state["bits_c"],
+            sync_message_bits(trig, deg, payload))
+        state["sync_rounds"] += 1
+        state["triggers"] += trig.sum().to(torch.int32)
+
+    def train_step(state: State, batch: Mapping[str, Any]
+                   ) -> Tuple[State, Dict[str, Any]]:
+        batch = {k: torch.as_tensor(v).to(device=dev, dtype=torch.int64)
+                 for k, v in batch.items()}
+        lead = {v.shape[0] for v in batch.values()}
+        if lead != {n}:
+            raise ValueError(f"batch leading dims {sorted(lead)} != "
+                             f"ensemble size {n}")
+        params = state["params"]
+        grads = torch.zeros_like(params)
+        losses = node_losses_grads(params, batch, grads)
+        eta = dcfg.lr(state["t"])
+        with torch.no_grad():
+            # params becomes x^{t+1/2}; grads is left free for diff
+            state["opt"] = opt.update(grads, state["opt"], params,
+                                      float(eta))
+            if is_sync(state["t"], H):
+                sync(state, grads, eta)
+        del grads
+        state["t"] += 1
+        metrics = {"loss": losses.mean(), "eta": eta,
+                   "bits": state["bits"],
+                   "sync_rounds": state["sync_rounds"],
+                   "triggers": state["triggers"]}
+        return state, metrics
+
+    for fn in (init_fn, train_step):
+        fn.use_kernel = True
+        fn.lowering = "cuda" if dev.type == "cuda" else "torch"
+        fn.device = dev
+        fn.n_nodes = n
+        fn.plan = plan
+        fn.k_b = k_b
+        fn.payload_bits = payload
+        fn.d_model_total = int(D)
+        fn.d_pad = int(D_pad)
+        fn.gamma = float(gamma)
+        fn.unravel = unravel
+        fn.ravel = ravel
+    return init_fn, train_step, pshape

@@ -1,0 +1,209 @@
+"""Holding each hand-written kernel against its plain PyTorch version on the
+same inputs. Used on the card by ``tests/test_torch_cuda.py`` and by
+``chip_smoke.py``; on the CPU both sides are the plain version.
+
+What must agree, and how closely (SignTopK):
+
+* the selected index set of every tile, and the per-tile threshold (the
+  k_b-th largest ``|diff|``): exactly, because the radix select is exact;
+* ``trig = 0``: q exactly zero and x_hat_new exactly x_hat;
+* q, the scales and x_hat_new: within ``F32_RTOL`` relative for float32,
+  because a scale is a float32 sum of up to k_b positive terms that the
+  kernel adds in another order than PyTorch (a few ulps); within
+  ``BF16_RTOL`` (one bfloat16 ulp) for bfloat16, because a scale a few
+  float32 ulps apart can round q to the neighbouring bfloat16 value.
+"""
+from __future__ import annotations
+
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.sign_topk import (BLOCK, _row_threshold,
+                                           sign_topk_blocks,
+                                           sign_topk_blocks_plain)
+
+F32_RTOL = 1e-5
+BF16_RTOL = 2.0 ** -7
+
+# (kind, n_tiles, dtype, k_b, trig, fused): the cases of tests/test_kernels.py
+#   normal  - x_half ~ N(0, 1), x_hat ~ 0.3 N(0, 1)
+#   ties    - values on a 1/4 grid, so many |diff| tie at the threshold
+#   const   - every |diff| equal, signs mixed: the whole tile is one tie
+#   zeros   - all-zero input: must stay silent
+#   ragged  - a flat vector of d = n_tiles elements (the reference tests'
+#             ragged lengths), zero-padded to whole tiles as ops.py pads it
+RAGGED_D = (1, 1023, 1025, 2500, 3089)
+SIGN_TOPK_CASES = tuple(
+    [("normal", nb, dt, k_b, trig, True)
+     for nb in (1, 2, 8, 16, 32) for dt in ("float32", "bfloat16")
+     for k_b in (1, 16, 103, 128, 512) for trig in (0.0, 1.0)]
+    + [("ties", 8, dt, k_b, 1.0, fused) for dt in ("float32", "bfloat16")
+       for k_b in (1, 16, 103, 512) for fused in (True, False)]
+    + [("const", 2, dt, k_b, 1.0, False) for dt in ("float32", "bfloat16")
+       for k_b in (1, 103, 1024)]
+    + [("zeros", 2, dt, 128, 1.0, True) for dt in ("float32", "bfloat16")]
+    + [("ragged", d, dt, k_b, 1.0, False) for d in RAGGED_D
+       for dt in ("float32", "bfloat16") for k_b in (1, 103)])
+
+
+def make_sign_topk_case(spec: Tuple, device: torch.device, seed: int = 0
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                   float, int]:
+    """Inputs (x_half, x_hat or None, trig, k_b) of one case, from a numpy
+    seed."""
+    kind, nb, dt, k_b, trig, fused = spec
+    rng = np.random.default_rng([seed, nb, k_b, int(trig), int(fused)])
+    if kind == "ragged":
+        nb = -(-nb // BLOCK)
+    shape = (nb, BLOCK)
+    if kind == "normal":
+        xh = rng.standard_normal(shape)
+        xe = 0.3 * rng.standard_normal(shape)
+    elif kind == "ties":
+        xh = np.round(rng.standard_normal(shape) * 4.0) / 4.0
+        xe = np.round(rng.standard_normal(shape) * 2.0) / 4.0
+    elif kind == "const":
+        xh = 7.0 * np.where(np.arange(nb * BLOCK) % 3 == 0, 1.0,
+                            -1.0).reshape(shape)
+        xe = np.zeros(shape)
+    elif kind == "zeros":
+        xh = xe = np.zeros(shape)
+    elif kind == "ragged":
+        d = spec[1]
+        flat = np.zeros(nb * BLOCK)
+        flat[:d] = rng.standard_normal(d)
+        xh, xe = flat.reshape(shape), np.zeros(shape)
+    else:
+        raise ValueError(kind)
+    dtype = getattr(torch, dt)
+
+    def tensor(a):
+        return torch.tensor(a, dtype=torch.float32).to(dtype).to(device)
+    return tensor(xh), (tensor(xe) if fused else None), trig, k_b
+
+
+def _fail(what: str, spec) -> None:
+    raise AssertionError(f"sign_topk kernel != plain version: {what} "
+                         f"(case {spec})")
+
+
+def check_sign_topk(x_half: torch.Tensor, x_hat: Optional[torch.Tensor],
+                    trig: float, k_b: int, spec=None) -> float:
+    """Run ``sign_topk_blocks`` (the kernel, for CUDA tensors) and the
+    plain version on the same inputs, raise AssertionError where they
+    disagree beyond the module's tolerances, and return the largest
+    absolute difference over q, x_hat_new and the scales."""
+    return compare_sign_topk(x_half, x_hat, trig, k_b,
+                             sign_topk_blocks(x_half, x_hat, trig, k_b), spec)
+
+
+def check_sign_topk_chunked(x: torch.Tensor, k_b: int, chunk_rows: int,
+                            spec=None) -> float:
+    """One ensemble-mode launch (x_hat = None, trig = 1) over the whole
+    ``(n_tiles, BLOCK)`` input, held against the plain version
+    ``chunk_rows`` tiles at a time: the plain version's temporaries at the
+    main path's full shape would not fit on the card. Returns the largest
+    absolute difference."""
+    q, _, scale = sign_topk_blocks(x, None, 1.0, k_b)
+    err = 0.0
+    for lo in range(0, x.shape[0], chunk_rows):
+        hi = min(x.shape[0], lo + chunk_rows)
+        err = max(err, compare_sign_topk(
+            x[lo:hi], None, 1.0, k_b, (q[lo:hi], None, scale[lo:hi]),
+            spec=(spec, f"tiles {lo}:{hi}")))
+    return err
+
+
+def compare_sign_topk(x_half: torch.Tensor, x_hat: Optional[torch.Tensor],
+                      trig: float, k_b: int,
+                      kernel_out: Tuple[torch.Tensor, Optional[torch.Tensor],
+                                        torch.Tensor],
+                      spec=None) -> float:
+    """Hold ``kernel_out`` = (q, x_hat_new, scale) of ``sign_topk_blocks``
+    against the plain version on the same inputs (see
+    :func:`check_sign_topk`)."""
+    q_k, xn_k, sc_k = kernel_out
+    q_p, xn_p, sc_p = sign_topk_blocks_plain(x_half, x_hat, trig, k_b)
+    f32 = torch.float32
+    rtol = F32_RTOL if x_half.dtype == f32 else BF16_RTOL
+    if trig == 0.0:
+        if torch.any(q_k != 0) or torch.any(sc_k != 0):
+            _fail("trig = 0 emitted a nonzero message", spec)
+        if xn_k is not None and not torch.equal(xn_k, x_hat):
+            _fail("trig = 0 changed x_hat", spec)
+        return 0.0
+    diff = x_half.to(f32) - (0.0 if x_hat is None else x_hat.to(f32))
+    av = diff.abs()
+    sel_k, sel_p = q_k != 0, q_p != 0
+    if not torch.equal(sel_k, sel_p):
+        bad = int((sel_k != sel_p).any(dim=1).sum())
+        _fail(f"selected index sets differ in {bad} tiles", spec)
+    thr_p = _row_threshold(av, k_b)[:, 0]
+    # the kernel's threshold: the least selected |diff| of a full support,
+    # 0 where the tile has fewer than k_b nonzeros
+    full = sel_k.sum(dim=1) == k_b
+    least = torch.where(sel_k, av, torch.inf).amin(dim=1)
+    thr_k = torch.where(full, least, torch.zeros_like(least))
+    if not torch.equal(thr_k, thr_p):
+        _fail("thresholds differ", spec)
+    errs = []
+    for name, a, b, scale in (
+            ("q", q_k, q_p, q_p),
+            ("scale", sc_k, sc_p, sc_p),
+            ("x_hat_new", xn_k, xn_p, q_p)):
+        if a is None:
+            continue
+        err = (a.to(f32) - b.to(f32)).abs()
+        tol = rtol * scale.to(f32).abs()
+        if name == "x_hat_new":   # plus the rounding of x_hat + q itself
+            tol = tol + rtol * b.to(f32).abs()
+        if bool(torch.any(err > tol)):
+            _fail(f"{name} beyond rtol {rtol}: max err "
+                  f"{float(err.max()):.3e}", spec)
+        errs.append(float(err.max()) if err.numel() else 0.0)
+    return max(errs)
+
+
+def check_all_sign_topk(device: torch.device) -> Iterator[Tuple[Tuple, float]]:
+    """Every case of :data:`SIGN_TOPK_CASES`: yields (case, max_abs_err)."""
+    for spec in SIGN_TOPK_CASES:
+        yield spec, check_sign_topk(*make_sign_topk_case(spec, device),
+                                    spec=spec)
+
+
+def check_ensemble_matches_rows(device: torch.device, n: int = 4,
+                                d: int = 2 * BLOCK + 300, k_b: int = 13
+                                ) -> None:
+    """``ops.sign_topk_ensemble`` (one launch over every node's tiles) must
+    equal ``ops.trigger_compress_update`` row by row, bit for bit: both run
+    the same tile math on the same values."""
+    rng = np.random.default_rng(9)
+    diff = torch.tensor(rng.standard_normal((n, d)), dtype=torch.float32,
+                        device=device)
+    q_ens = ops.sign_topk_ensemble(diff, k_b)
+    for r in range(n):
+        q_row, _, _ = ops.trigger_compress_update(
+            diff[r], torch.zeros(d, device=device), 0.0, k_b)
+        if not torch.equal(q_ens[r], q_row):
+            raise AssertionError(f"ensemble row {r} != per-row update")
+
+
+def check_payload_reconstructs(device: torch.device) -> None:
+    """``ops.sign_topk``'s (vals, idx) payload rebuilds q exactly at ragged
+    lengths and under an all-ties input."""
+    rng = np.random.default_rng(0)
+    cases = [(rng.standard_normal(d), k) for d, k in
+             ((1, 1), (1023, 100), (1025, 64), (2500, 250), (3089, 123))]
+    cases.append((7.0 * np.where(np.arange(2048) % 3 == 0, 1.0, -1.0), 256))
+    for flat, k in cases:
+        x = torch.tensor(flat, dtype=torch.float32, device=device)
+        q, vals, idx = ops.sign_topk(x, k)
+        nb = max(1, -(-x.shape[0] // BLOCK))
+        rebuilt = torch.zeros(nb * BLOCK, device=device)
+        rebuilt[idx.long()] = vals
+        if not torch.equal(rebuilt[:x.shape[0]], q):
+            raise AssertionError(f"payload does not rebuild q at d="
+                                 f"{x.shape[0]}, k={k}")

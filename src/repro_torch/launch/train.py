@@ -1,0 +1,196 @@
+"""End-to-end decentralized training driver of the port (counterpart of
+``repro/launch/train.py``): the same flags and defaults, plus ``--device``.
+
+The whole ``--nodes`` ensemble lives on one device, ``cuda`` unless
+``--device cpu`` is given:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --nodes 4 --use-kernel --steps 6 --H 3
+
+Flags whose features are not ported yet raise with the reason: fault
+injection (``--link-drop``, ``--stragglers``, ``--dropout-window``),
+``--dynamic`` plans, checkpoints (``--ckpt-dir``, ``--resume``), ``--lint``,
+``--devices`` (the mesh factoring waits for the sharding slice), and any run
+without ``--use-kernel`` (the generic compressor path).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import sys
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="force N host devices (not ported: mesh factoring)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the reduced smoke-test config")
+    ap.add_argument("--nodes", type=int, default=0, help="override n_nodes")
+    ap.add_argument("--batch-per-node", type=int, default=2)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--H", type=int, default=5)
+    ap.add_argument("--frac", type=float, default=0.1)
+    ap.add_argument("--variant", default="ring",
+                    choices=["dense", "ring", "shift"],
+                    help="mixing: dense product, or circulant row rolls "
+                         "(dense off circulant graphs)")
+    ap.add_argument("--topology", default="ring",
+                    choices=["ring", "torus2d", "complete", "expander"])
+    ap.add_argument("--deg", type=int, default=4,
+                    help="expander degree (--topology expander)")
+    ap.add_argument("--mixing", default="uniform",
+                    choices=["uniform", "metropolis"])
+    ap.add_argument("--dynamic", default="none",
+                    choices=["none", "matchings", "edges", "cycle"],
+                    help="time-varying gossip plan (not ported yet)")
+    ap.add_argument("--dynamic-rounds", type=int, default=8)
+    ap.add_argument("--edge-frac", type=float, default=0.5)
+    ap.add_argument("--topo-seed", type=int, default=0,
+                    help="graph sampling seed")
+    ap.add_argument("--link-drop", type=float, default=0.0,
+                    help="fault injection (not ported yet)")
+    ap.add_argument("--stragglers", default="",
+                    help="fault injection (not ported yet)")
+    ap.add_argument("--straggler-frac", type=float, default=0.5)
+    ap.add_argument("--dropout-window", action="append", default=None,
+                    metavar="NODE:START:END",
+                    help="fault injection (not ported yet)")
+    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--momentum", type=float, default=0.0,
+                    help="SQuARM-SGD momentum beta (0 = plain SPARQ)")
+    ap.add_argument("--nesterov", action="store_true")
+    ap.add_argument("--lr", type=float, default=0.5)
+    ap.add_argument("--threshold", type=float, default=2.0)
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="the blockwise SignTopK CUDA kernel path (the only "
+                         "ported compression path)")
+    ap.add_argument("--lint", action="store_true",
+                    help="static audit of the compiled step (not ported)")
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda without a GPU raises")
+    return ap
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    waits = [
+        (args.devices, "--devices: the mesh factoring waits for the "
+                       "sharding slice; the ensemble runs on one device"),
+        (args.link_drop or args.stragglers or args.dropout_window,
+         "--link-drop/--stragglers/--dropout-window: fault injection is not "
+         "ported yet (ROADMAP.md, faults and baselines)"),
+        (args.dynamic != "none",
+         "--dynamic: time-varying gossip plans are not ported yet "
+         "(ROADMAP.md, dynamic plans)"),
+        (args.ckpt_dir or args.resume,
+         "--ckpt-dir/--resume: checkpointing is not ported yet (ROADMAP.md, "
+         "checkpoint/resume and the rest of the CLI)"),
+        (args.lint, "--lint: the static audit checks XLA programs and has no "
+                    "counterpart in the port yet (ROADMAP.md, audits)"),
+        (not args.use_kernel,
+         "a run without --use-kernel needs the generic compressor path, "
+         "which is not ported yet (ROADMAP.md, compressors)"),
+    ]
+    for bad, why in waits:
+        if bad:
+            raise SystemExit(f"[train] not ported: {why}")
+
+
+def run(argv: Optional[Sequence[str]] = None, on_sync=None) -> Dict[str, Any]:
+    """Parse ``argv``, train, and return what the run produced: ``losses``
+    (one float per step), the final ``state`` and ``metrics``, the engine's
+    ``train_step`` (its metadata attributes), and ``s_per_step`` (host clock
+    around each step, synchronized on CUDA). ``on_sync`` is passed on to
+    ``build_sparq``."""
+    args = _parser().parse_args(argv)
+    _refuse_unported(args)
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.schedule import decaying
+    from repro_torch.core.triggers import constant
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.dist.sparq_dist import DistSparqConfig, build_sparq
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        # float32 products stay in full float32 (no TF32), like the reference
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.nodes:
+        cfg = dataclasses.replace(cfg, n_nodes=args.nodes)
+
+    dcfg = DistSparqConfig(
+        H=args.H, frac=args.frac, lr=decaying(args.lr, 100.0),
+        threshold=constant(args.threshold), momentum=args.momentum,
+        nesterov=args.nesterov, variant=args.variant,
+        use_kernel=args.use_kernel, topology=args.topology, deg=args.deg,
+        mixing=args.mixing, topo_seed=args.topo_seed)
+    init_fn, train_step, pshape = build_sparq(cfg, dcfg, device=dev,
+                                              on_sync=on_sync)
+    plan = init_fn.plan
+    print(f"[train] ensemble n={cfg.n_nodes} on {dev} arch={cfg.arch_id} "
+          f"(~{init_fn.d_model_total / 1e6:.1f}M params/node)")
+    print(f"[train] gossip plan {plan.name} (R={plan.R}) "
+          f"delta_eff={plan.delta_eff:.4f}")
+    state = init_fn(seed=0)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                         batch_per_node=args.batch_per_node,
+                         n_nodes=cfg.n_nodes, seed=0)
+
+    def sync_device():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    losses: List[torch.Tensor] = []
+    s_per_step: List[float] = []
+    metrics: Optional[Dict[str, Any]] = None
+    t_start = time.perf_counter()
+    for i in range(args.steps):
+        batch = pipe.global_batch(i)
+        sync_device()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        sync_device()
+        s_per_step.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].detach())
+        if (i + 1) % args.log_every == 0:
+            print(f"[train] step {i + 1:5d} loss {float(metrics['loss']):.4f} "
+                  f"eta {float(metrics['eta']):.4f} "
+                  f"bits {float(metrics['bits']):.3e} "
+                  f"triggers {int(metrics['triggers'])} "
+                  f"({(time.perf_counter() - t_start) / (i + 1):.2f}s/step)")
+    loss_values = [float(v) for v in losses]
+    if metrics is None:
+        print(f"[train] DONE no steps run (steps={args.steps})")
+    else:
+        print(f"[train] DONE loss={loss_values[-1]:.4f} "
+              f"total_bits={float(metrics['bits']):.3e} "
+              f"trigger_events={int(metrics['triggers'])}")
+    if any(not math.isfinite(v) for v in loss_values):
+        raise SystemExit(f"[train] non-finite loss: {loss_values}")
+    return {"losses": loss_values, "state": state, "metrics": metrics,
+            "train_step": train_step, "cfg": cfg, "s_per_step": s_per_step}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,106 @@
+"""Shared layers: norms, RoPE, MLPs, embeddings (counterpart of
+``repro/models/layers.py``). Plain functions over dicts of tensors; the
+numerics (casts to the compute dtype, float32 norms and RoPE angles) follow
+the reference step by step so the two can be compared.
+
+Initialization draws from an explicit ``torch.Generator``; it cannot give
+the reference's threefry numbers, so tests that compare the two packages
+hand the reference's weights over with ``transformer.params_from_jax``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """torch dtype of a config dtype name (``"float32"``, ``"bfloat16"``)."""
+    return getattr(torch, name)
+
+
+def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
+               dtype: torch.dtype, scale: float = 0.02) -> torch.Tensor:
+    """scale * a standard normal truncated to [-2, 2] (inverse-CDF draw)."""
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    t.uniform_(lo, hi, generator=gen).erfinv_().mul_(math.sqrt(2.0))
+    return t.clamp_(-2.0, 2.0).mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------- norms
+
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------- rope
+
+def rope_frequencies(head_dim: int, rope_pct: float, theta: float,
+                     device: torch.device) -> Tuple[torch.Tensor, int]:
+    rot = int(head_dim * rope_pct)
+    rot -= rot % 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (theta ** exps), rot
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_pct: float,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S) int."""
+    inv, rot = rope_frequencies(x.shape[-1], rope_pct, theta, x.device)
+    if rot == 0:
+        return x
+    ang = positions[..., :, None].to(torch.float32) * inv   # (..., S, rot/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------- mlp
+
+def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    cd = dtype_of(cfg.compute_dtype)
+    x = x.to(cd)
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(cd)) * (x @ p["w_in"].to(cd))
+    elif cfg.act == "relu2":
+        h = torch.square(F.relu(x @ p["w_in"].to(cd)))
+    else:
+        h = F.gelu(x @ p["w_in"].to(cd), approximate="tanh")
+    return h @ p["w_out"].to(cd)
+
+
+# ---------------------------------------------------------------- embeddings
+
+def embed_tokens(cfg: ModelConfig, p: Params, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    # the whole table is cast before the gather, as in the reference, so the
+    # backward accumulates repeated tokens in the compute dtype too
+    return p["embedding"].to(dtype_of(cfg.compute_dtype))[tokens]
+
+
+def lm_logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
+    cd = dtype_of(cfg.compute_dtype)
+    w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
+    return h @ w.to(cd)
