@@ -6,18 +6,30 @@
 Phases (any failure raises and exits non-zero; nothing falls back):
 
 1. set-up: the card's name and power limit, and the build of every CUDA
-   kernel from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+   kernel from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
+   nvcc per source, all at once, with each kernel's register and spill
+   lines;
 2. each kernel against its plain PyTorch version on the card, on the cases
-   of the reference's kernel tests, then timed at the main path's shape and
-   held against the plain version there on every tile;
-   then the flat-buffer engine on a small float32 model, its CUDA kernel path
-   against its plain path on the CPU;
-3. the main path: the port's train entry at the full width of qwen1.5-0.5b
-   (24 layers, d_model 1024, vocab 151,936; random weights from seed 0),
-   4 nodes on the one card, 6 steps with a sync every 3; the kernel launch
-   counts are set to 0 just before and read just after; then a profiled
-   run of 3 steps, whose sync's real diff is kept, and the kernel held
-   against its plain version on every tile of that diff;
+   of the reference's kernel tests, then timed at the main path's shape,
+   (2,420,196, 1024) float32, and held against the plain version there on
+   every tile; then the flat-buffer engine on a small float32 model, its
+   CUDA kernel path against its plain path on the CPU;
+3. the paths, each driven with every launch count set to 0 just before and
+   read just after, and failed if a kernel of the path was never launched:
+   a. the trainer (the main path): the port's train entry at the full width
+      of qwen1.5-0.5b (24 layers, d_model 1024, vocab 151,936; random
+      weights from seed 0), 4 nodes on the one card, 6 steps with a sync
+      every 3 (SignTopK); then a profiled run of 3 steps, whose sync's real
+      diff is kept, and the kernel held against its plain version on every
+      tile of that diff;
+   b. the kernel suite (``launch/bench_kernels.py --full``: SignTopK, QSGD
+      and the fused trigger against the oracle);
+   c. the reference engine: the golden cases ``sparq`` and ``squarm`` held
+      against ``tests/golden/*.json``, then SPARQ with BlockTopFrac at the
+      paper's convex scale (n=60 ring, d=7840, T=4000; SignTopK once per
+      sync) against the port's CPU run of the same config; then the convex
+      experiment (``launch/convex_bits.py --full``), whose rows use the
+      global operators and launch no kernel;
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -47,6 +59,10 @@ INT32_OPS_PER_S = F32_OPS_PER_S / 2
 # issue to separate pipes, so the least time is the larger of the two
 SIGN_TOPK_INT_OPS = 68
 SIGN_TOPK_F32_OPS = 4
+# QSGD per element: a square and add for the norm, then |x|, a divide, a
+# multiply, floor, a subtract, a compare, an add, a divide, the sign and two
+# multiplies: about 12 float32 operations
+QSGD_F32_OPS = 12
 PLAIN_ROWS = 1 << 16          # tiles per call of the plain version
 MAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--nodes", "4", "--use-kernel",
              "--steps", "6", "--H", "3", "--batch-per-node", "2",
@@ -80,6 +96,34 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_golden(got_state, trace, want, case) -> None:
+    """The golden test's comparison (tests/test_golden_traces.py): integer
+    channels exact, bits rtol 1e-9, losses and the final fingerprint rtol
+    2e-4."""
+    import numpy as np
+    import torch
+    got = trace.to_dict()
+    for col in ("t", "sync_rounds", "triggers"):
+        if got[col] != want["trace"][col]:
+            raise AssertionError(f"golden {case}: {col} {got[col]} != "
+                                 f"{want['trace'][col]}")
+    np.testing.assert_allclose(got["bits"], want["trace"]["bits"], rtol=1e-9)
+    np.testing.assert_allclose(got["loss"], want["trace"]["loss"], rtol=2e-4,
+                               atol=1e-6, err_msg=f"golden {case} loss")
+    xbar = torch.mean(got_state.x, dim=0).double().cpu().numpy()
+    fin = want["final"]
+    if got_state.sync_rounds != fin["sync_rounds"] or \
+            int(got_state.triggers) != fin["triggers"]:
+        raise AssertionError(f"golden {case}: final counts differ")
+    np.testing.assert_allclose(float(got_state.bits), fin["bits"], rtol=1e-9)
+    np.testing.assert_allclose(np.linalg.norm(xbar), fin["x_bar_norm"],
+                               rtol=2e-4)
+    np.testing.assert_allclose(xbar[:4], fin["x_bar_head"], rtol=2e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(xbar[-4:], fin["x_bar_tail"], rtol=2e-4,
+                               atol=1e-6)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -99,9 +143,10 @@ def main() -> int:
     from repro_torch.dist.sparq_dist import (DistSparqConfig, _flatten_spec,
                                              build_sparq)
     from repro_torch.kernels import parity
+    from repro_torch.kernels.qsgd import qsgd_blocks, qsgd_blocks_plain
     from repro_torch.kernels.sign_topk import (BLOCK, sign_topk_blocks,
                                                sign_topk_blocks_plain)
-    from repro_torch.launch import train
+    from repro_torch.launch import bench_kernels, convex_bits, train
     from repro_torch.models.transformer import init_params, param_shapes
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -115,9 +160,20 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     built = kernels.build()
-    regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
-    log(f"sign_topk.cu built in {time.perf_counter() - t0:.2f} s (nvcc "
-        f"{built.seconds:.2f} s); {'; '.join(regs)}")
+    log(f"{len(built)} kernel sources built in {time.perf_counter() - t0:.2f}"
+        f" s, one nvcc each, all at once")
+    for name, b in built.items():
+        regs = [ln.strip() for ln in b.log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"  {name}.cu: nvcc {b.seconds:.2f} s; {'; '.join(regs)}")
+    launch_counts = (sign_topk_blocks, qsgd_blocks)
+
+    def zero_counts():
+        for fn in launch_counts:
+            fn.launches = 0
+
+    def read_counts():
+        return {fn.__name__: fn.launches for fn in launch_counts}
 
     # ------------------------------------------- 2. kernel vs plain, timing
     max_err = 0.0
@@ -170,6 +226,51 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
+    # QSGD: the reference's kernel cases (nb in {1, 4, 16} x s in {4, 16,
+    # 64} x f32/bf16, and a zero tile), ops.qsgd on ragged lengths with
+    # threefry noise, and the unbiasedness check over 256 keys
+    t_q = time.perf_counter()
+    q_err, q_flips, n_q = 0.0, 0, 0
+    for _, err, flips in parity.check_all_qsgd(dev):
+        q_err, q_flips, n_q = max(q_err, err), q_flips + flips, n_q + 1
+    err, flips = parity.check_ops_qsgd_ragged(dev)
+    q_err, q_flips = max(q_err, err), q_flips + flips
+    gap = parity.check_qsgd_unbiased(dev)
+    torch.cuda.synchronize()
+    log(f"qsgd kernel == plain version on {n_q} cases + ops.qsgd at d in "
+        f"{parity.QSGD_RAGGED_D}: max abs err {q_err:.3e}, {q_flips} "
+        f"boundary flips; mean of 256 draws within {gap:.4f} of x")
+
+    # at the main path's buffer shape: x, u and out take 29.7 GB. u comes
+    # from torch.rand on the card (the threefry port's int64 temporaries at
+    # 2.48e9 elements would not fit); the threefry draws are checked above
+    x = torch.randn((rows, BLOCK), generator=gen, device=dev)
+    u = torch.rand((rows, BLOCK), generator=gen, device=dev)
+    qsgd_ms = time_ms(torch, lambda: qsgd_blocks(x, u, 16), 10)
+
+    def qsgd_plain_full():
+        for lo in range(0, rows, PLAIN_ROWS):
+            qsgd_blocks_plain(x[lo:lo + PLAIN_ROWS], u[lo:lo + PLAIN_ROWS], 16)
+    qsgd_plain_ms = time_ms(torch, qsgd_plain_full, 2)
+    q_bytes = elements * (4 + 4 + 4)                 # x and u in; out
+    q_bytes_ms = q_bytes / HBM_BYTES_PER_S * 1e3
+    q_ops_ms = elements * QSGD_F32_OPS / F32_OPS_PER_S * 1e3
+    q_bound_ms = max(q_bytes_ms, q_ops_ms)
+    log(f"qsgd at ({rows}, {BLOCK}) f32, s=16:")
+    log(f"  kernel_ms {qsgd_ms:.4f}")
+    log(f"  plain_ms {qsgd_plain_ms:.4f} (every tile, {PLAIN_ROWS} tiles "
+        f"per call)")
+    log(f"  bound_ms {q_bound_ms:.4f} (bytes {q_bytes / 1e9:.2f} GB -> "
+        f"{q_bytes_ms:.4f} ms; operations -> {q_ops_ms:.4f} ms)")
+    full_q_err, full_flips = parity.check_qsgd_chunked(
+        x, u, 16, PLAIN_ROWS, spec="main-path shape")
+    q_err, q_flips = max(q_err, full_q_err), q_flips + full_flips
+    log(f"  kernel == plain version on all {rows} tiles: max abs err "
+        f"{full_q_err:.3e} where they agree, {full_flips} boundary flips "
+        f"({time.perf_counter() - t_q:.1f} s for the QSGD phase)")
+    del x, u
+    torch.cuda.empty_cache()
+
     # the flat-buffer engine, kernel path on the card vs plain path on the
     # CPU, on a small float32 model from the same weights: the repo's own
     # reference for the slice. frac = 1 selects every nonzero entry, so the
@@ -216,9 +317,10 @@ def main() -> int:
 
     # ---------------------------------------------------------- 3. main path
     torch.cuda.reset_peak_memory_stats(dev)
-    sign_topk_blocks.launches = 0
+    zero_counts()
     result = train.run(MAIN_ARGS)
-    launches = sign_topk_blocks.launches
+    counts = {"train": read_counts()}
+    launches = counts["train"]["sign_topk_blocks"]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     state, step = result["state"], result["train_step"]
     losses = result["losses"]
@@ -302,19 +404,186 @@ def main() -> int:
     log(f"kernel == plain version on every tile of the first sync's diff "
         f"({diff_tiles.shape[0]} tiles): max abs err {real_err:.3e}")
     del diff_tiles
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 3b. the kernel suite
+    t_p = time.perf_counter()
+    zero_counts()
+    suite = bench_kernels.run_bench(quick=False, device="cuda")
+    torch.cuda.synchronize()
+    counts["kernel_suite"] = read_counts()
+    for r in suite:
+        log(f"kernel suite: {json.dumps(r)}")
+        if not r["bit_equal_oracle"] and r["name"] == "kernel_qsgd":
+            raise AssertionError(f"kernel suite: qsgd != oracle: {r}")
+    if min(counts["kernel_suite"].values()) == 0:
+        raise AssertionError(f"kernel suite launched no kernel of a kind: "
+                             f"{counts['kernel_suite']}")
+    log(f"kernel suite: launches {counts['kernel_suite']} "
+        f"({time.perf_counter() - t_p:.1f} s)")
+
+    # --------------------------------------------- 3c. the reference engine
+    from repro_torch.core import prng, sparq, topology
+    from repro_torch.core.compression import BlockTopFrac, SignTopK
+    from repro_torch.data import synthetic
+    t_p = time.perf_counter()
+    zero_counts()
+    _, make_grad_fn, full_loss = synthetic.logistic_loss_and_grad(4)
+    X, Y = synthetic.convex_dataset(6, 40, n_features=16, n_classes=4,
+                                    seed=0)
+    Xg, Yg = torch.tensor(X, device=dev), torch.tensor(Y, device=dev)
+    ring6 = topology.make_topology("ring", 6)
+    thr = triggers.piecewise(30.0 * 64, 30.0 * 64, every=10, until=60)
+    lr = schedule.decaying(1.0, 50.0)
+    golden_cfgs = {
+        "sparq": sparq.SparqConfig(topology=ring6,
+                                   compressor=SignTopK(k=6), threshold=thr,
+                                   lr=lr, H=5, gamma=0.3),
+        "squarm": sparq.squarm_config(ring6, SignTopK(k=6), lr, H=5,
+                                      threshold=thr, beta=0.9,
+                                      nesterov=True, gamma=0.3)}
+    for case, gcfg in golden_cfgs.items():
+        with open(os.path.join(ROOT, "tests", "golden", f"{case}.json")) as f:
+            want = json.load(f)
+        # the committed goldens were drawn from JAX's original threefry
+        # stream (jax_threefry_partitionable off)
+        with prng.threefry_partitionable(False):
+            g_state, g_trace = sparq.run(
+                gcfg, make_grad_fn(Xg, Yg, 4), torch.zeros(64, device=dev),
+                want["T"], prng.PRNGKey(0),
+                record_every=want["record_every"],
+                eval_fn=lambda xb: full_loss(xb, Xg, Yg))
+        check_golden(g_state, g_trace, want, case)
+        log(f"golden {case} on the card == tests/golden/{case}.json "
+            f"(losses {[round(float(v), 6) for v in g_trace.loss]})")
+
+    # SPARQ with BlockTopFrac at the paper's convex scale, on the card and
+    # on the CPU: the card's run launches SignTopK once per sync
+    n_c, m_c, f_c, c_c, T_c, mb_c, rec_c = 60, 200, 784, 10, 4000, 5, 200
+    d_c = f_c * c_c
+    _, make_grad_c, full_loss_c = synthetic.logistic_loss_and_grad(c_c)
+    Xc, Yc = synthetic.convex_dataset(n_c, m_c, n_features=f_c,
+                                      n_classes=c_c, seed=0)
+    ccfg = sparq.SparqConfig(
+        topology=topology.make_topology("ring", n_c),
+        compressor=BlockTopFrac(frac=0.1),
+        threshold=triggers.piecewise(30.0 * d_c, 30.0 * d_c,
+                                     every=T_c // 8, until=T_c),
+        lr=schedule.decaying(1.0, 100.0), H=5)
+    paper = {}
+    for where in ("cuda", "cpu"):
+        on = dev if where == "cuda" else torch.device("cpu")
+        Xw, Yw = torch.tensor(Xc, device=on), torch.tensor(Yc, device=on)
+        zero_counts()
+        if where == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c_state, c_trace = sparq.run(
+            ccfg, make_grad_c(Xw, Yw, mb_c), torch.zeros(d_c, device=on),
+            T_c, prng.PRNGKey(0), record_every=rec_c,
+            eval_fn=lambda xb, Xw=Xw, Yw=Yw: full_loss_c(xb, Xw, Yw))
+        if where == "cuda":
+            torch.cuda.synchronize()
+        paper[where] = (c_state, c_trace,
+                        (time.perf_counter() - t0) / T_c * 1e6,
+                        read_counts())
+    (s_g, tr_g, us_g, cnt_g), (s_c, tr_c, us_c, _) = paper["cuda"], \
+        paper["cpu"]
+    counts["reference_engine"] = cnt_g
+    if not (cnt_g["sign_topk_blocks"] == s_g.sync_rounds == T_c // 5):
+        raise AssertionError(f"paper scale: {cnt_g} launches for "
+                             f"{s_g.sync_rounds} syncs (want {T_c // 5})")
+    same = (tr_g.t.tolist() == tr_c.t.tolist()
+            and tr_g.sync_rounds.tolist() == tr_c.sync_rounds.tolist()
+            and tr_g.triggers.tolist() == tr_c.triggers.tolist()
+            and tr_g.bits.tolist() == tr_c.bits.tolist()
+            and float(s_g.bits) == float(s_c.bits))
+    if not same:
+        raise AssertionError(f"paper scale: card and CPU channels differ: "
+                             f"triggers {tr_g.triggers.tolist()} vs "
+                             f"{tr_c.triggers.tolist()}")
+    np.testing.assert_allclose(tr_g.loss, tr_c.loss, rtol=1e-3,
+                               err_msg="paper scale: card vs CPU losses")
+    if not np.all(np.isfinite(tr_g.loss)) or tr_g.loss[-1] >= tr_g.loss[0]:
+        raise AssertionError(f"paper scale: losses {tr_g.loss.tolist()}")
+    log(f"reference engine, SPARQ + BlockTopFrac at n={n_c}, d={d_c}, "
+        f"T={T_c}: {cnt_g['sign_topk_blocks']} SignTopK launches for "
+        f"{s_g.sync_rounds} syncs, {int(s_g.triggers)} triggers, bits "
+        f"{float(s_g.bits):.6e}, == the CPU run; final loss "
+        f"{tr_g.loss[-1]:.6f} (CPU {tr_c.loss[-1]:.6f}); us_per_step "
+        f"{us_g:.1f} on the card, {us_c:.1f} on the host CPU")
+
+    # where a reference-engine step goes: 100 steps (20 syncs) under the
+    # profiler, after the counts were read, and the threefry draws of one
+    # step's minibatches timed alone on the host
+    Xw, Yw = torch.tensor(Xc, device=dev), torch.tensor(Yc, device=dev)
+    grad_w = make_grad_c(Xw, Yw, mb_c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_c:
+        sparq.run(ccfg, grad_w, torch.zeros(d_c, device=dev), 100,
+                  prng.PRNGKey(0))
+        torch.cuda.synchronize()
+    ev_c = prof_c.key_averages()
+    dev_us = sum(e.self_device_time_total for e in ev_c
+                 if e.device_type == DeviceType.CUDA) / 100
+    n_dev = sum(e.count for e in ev_c
+                if e.device_type == DeviceType.CUDA) / 100
+    t0 = time.perf_counter()
+    for i in range(200):
+        prng.randint(prng.split(prng.PRNGKey(i), n_c), (mb_c,), 0, m_c)
+    draw_us = (time.perf_counter() - t0) / 200 * 1e6
+    log(f"reference engine, profiled 100 steps: device time {dev_us:.1f} "
+        f"us/step over {n_dev:.1f} device activities/step; against the "
+        f"unprofiled {us_g:.1f} us/step the device is idle "
+        f"{100 * (1 - dev_us / us_g):.1f}%; one step's minibatch draws "
+        f"(split + randint, on the host) {draw_us:.1f} us")
+    print(ev_c.table(sort_by="self_cpu_time_total", row_limit=8),
+          flush=True)
+
+    zero_counts()
+    convex = convex_bits.run_bench(quick=False, device="cuda")
+    counts["convex"] = read_counts()
+    for r in convex:
+        log(f"convex {r['name']:22s} final_loss {r['final_loss']:.6f} bits "
+            f"{r['bits']:.6e} bits_to_target {r['bits_to_target']:.6e} "
+            f"savings_vs_sparq {r['savings_vs_sparq']} us_per_call "
+            f"{r['us_per_call']:.1f} peak {r['peak_hbm_bytes']}")
+        loss = np.asarray(r["trace"]["loss"])
+        if not np.all(np.isfinite(loss)) or loss[-1] >= loss[0]:
+            raise AssertionError(f"convex {r['name']}: losses {loss}")
+    log(f"convex experiment: launches {counts['convex']} (its rows use the "
+        f"global operators); reference-engine phase "
+        f"{time.perf_counter() - t_p:.1f} s")
 
     # ------------------------------------------------------------- 4. report
+    def by_path(name):
+        return {path: c[name] for path, c in counts.items()}
     report = {"kernels": [{
         "name": "sign_topk_blocks", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sign_topk.cu",
         "replaces": "src/repro/kernels/sign_topk.py:122",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches,
+        "launches_by_path": by_path("sign_topk_blocks"),
+        "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
         "plain_tiles_per_call": PLAIN_ROWS, "bytes_ms": bytes_ms,
         "ops_ms": ops_ms, "topk_selection_only_ms": topk_ms,
-        "shape": [rows, BLOCK], "k_b": k_b}]}
+        "shape": [rows, BLOCK], "k_b": k_b}, {
+        "name": "qsgd_blocks", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/qsgd.cu",
+        "replaces": "src/repro/kernels/qsgd.py:41",
+        "launches": counts["kernel_suite"]["qsgd_blocks"],
+        "launches_by_path": by_path("qsgd_blocks"),
+        "max_abs_err": q_err, "boundary_flips": q_flips,
+        "ms": qsgd_ms, "plain_ms": qsgd_plain_ms, "bound_ms": q_bound_ms,
+        "bound_by": "bytes" if q_bytes_ms >= q_ops_ms else "operations",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes blockwise QSGD",
+        "plain_tiles_per_call": PLAIN_ROWS, "bytes_ms": q_bytes_ms,
+        "ops_ms": q_ops_ms, "shape": [rows, BLOCK], "s": 16}]}
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(report))
     print(card_line())

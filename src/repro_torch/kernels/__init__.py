@@ -9,12 +9,13 @@ option and no environment override: the choice follows the tensors' device.
   build or a refused launch raises; nothing falls back to the plain version.
 * Any other device raises.
 
-Build: ``csrc/sign_topk.cu`` is compiled at first use by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, cached under
-``_build/`` by a hash of the source and flags, and loaded with ``ctypes``.
-Pointers and the stream pass as ``c_void_p``. Every C entry point returns
-``cudaGetLastError()`` after its launch, and :func:`check` raises when that
-is not 0.
+Build: every ``csrc/*.cu`` is compiled at first use by ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface: one
+``nvcc`` per source, all started together. Each library is cached under
+``_build/`` by a hash of its source and the flags, and loaded with
+``ctypes``. Pointers and the stream pass as ``c_void_p``. Every C entry
+point returns ``cudaGetLastError()`` after its launch, and :func:`check`
+raises when that is not 0.
 """
 from __future__ import annotations
 
@@ -27,11 +28,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "sign_topk.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -43,7 +45,7 @@ class KernelBuildError(RuntimeError):
 
 @dataclasses.dataclass(frozen=True)
 class Built:
-    """The compiled kernel library."""
+    """One compiled kernel library."""
 
     path: Path
     seconds: float      # nvcc wall time; 0.0 when the cached library was used
@@ -63,34 +65,48 @@ def find_nvcc() -> str:
         "CUDA kernels cannot be built, and CUDA tensors have no other path")
 
 
-def build() -> Built:
-    """Compile ``csrc/sign_topk.cu`` (reusing a library of the same hash in
-    ``_build/``) and return where the library lies."""
+def build() -> Dict[str, Built]:
+    """Compile every ``csrc/*.cu`` (reusing a library of the same hash in
+    ``_build/``), one ``nvcc`` per source, all at once. Returns each
+    source's library by name (``"sign_topk"``, ``"qsgd"``). Raises
+    :class:`KernelBuildError`, after every ``nvcc`` has ended, when any
+    source failed."""
     nvcc = find_nvcc()
     cmd = [nvcc, *NVCC_FLAGS]
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(cmd).encode())
-    lib = BUILD_DIR / f"libsign_topk-{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return Built(lib, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd + ["-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed on {SOURCE.name} (exit {proc.returncode}):\n{out}")
-    os.replace(tmp, lib)
-    return Built(lib, seconds, out)
+    built: Dict[str, Built] = {}
+    running = {}
+    for name, src in SOURCES.items():
+        digest = hashlib.sha256(src.read_bytes() + " ".join(cmd).encode())
+        lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+        if lib.exists():
+            built[name] = Built(lib, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(cmd + ["-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, lib, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, lib, tmp, t0) in running.items():
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {SOURCES[name].name} "
+                          f"(exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib)
+        built[name] = Built(lib, seconds, out)
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return built
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    return ctypes.CDLL(str(build().path))
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    return ctypes.CDLL(str(build()[name].path))
 
 
 def bind(lib: ctypes.CDLL, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -1,10 +1,11 @@
-"""Flat-vector wrappers around the blockwise SignTopK kernel (counterpart
-of ``repro/kernels/ops.py``; ``qsgd`` is not ported yet).
+"""Flat-vector wrappers around the blockwise SignTopK and QSGD kernels
+(counterpart of ``repro/kernels/ops.py``).
 
-They pad flat vectors to whole BLOCK=1024 tiles, the interface the flat-
-buffer engine consumes. Each reaches the kernel through
-:func:`repro_torch.kernels.sign_topk.sign_topk_blocks`, which launches the
-CUDA kernel for CUDA tensors and runs the plain version for CPU tensors.
+They pad flat vectors to whole BLOCK=1024 tiles, the interface the engines
+consume. Each reaches its kernel through
+:func:`repro_torch.kernels.sign_topk.sign_topk_blocks` or
+:func:`repro_torch.kernels.qsgd.qsgd_blocks`, which launch the CUDA kernel
+for CUDA tensors and run the plain version for CPU tensors.
 
 Payload contract: per tile the exact-k support has at most k_b nonzeros, so
 a (vals, idx) payload of k_b entries per tile, gathered from the dense q in
@@ -18,7 +19,9 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 from repro_torch.kernels import sign_topk as sign_topk_mod
+from repro_torch.kernels.qsgd import qsgd_blocks
 from repro_torch.kernels.sign_topk import BLOCK
 
 
@@ -80,3 +83,12 @@ def sign_topk_ensemble(diff: torch.Tensor, k_b: int) -> torch.Tensor:
     q, _, _ = sign_topk_mod.sign_topk_blocks(xb, None, 1.0, k_b)
     q = q.view(n, nb * BLOCK)
     return q if nb * BLOCK == d else q[:, :d]
+
+
+def qsgd(flat: torch.Tensor, key: torch.Tensor, s: int = 16) -> torch.Tensor:
+    """Blockwise QSGD of a flat vector (``ops.py:108``): the noise is
+    ``prng.uniform(key, (n_tiles, BLOCK))``, the reference's draw bit for
+    bit, moved to ``flat``'s device."""
+    xb, d, _ = _to_blocks(flat)
+    u = prng.uniform(key, xb.shape).to(flat.device)
+    return qsgd_blocks(xb, u, s).reshape(-1)[:d]

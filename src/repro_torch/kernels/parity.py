@@ -1,6 +1,8 @@
 """Holding each hand-written kernel against its plain PyTorch version on the
 same inputs. Used on the card by ``tests/test_torch_cuda.py`` and by
-``chip_smoke.py``; on the CPU both sides are the plain version.
+``chip_smoke.py``; on the CPU both sides are the plain version, and
+``tests/test_torch_qsgd.py`` holds the plain QSGD against the reference with
+the same comparator.
 
 What must agree, and how closely (SignTopK):
 
@@ -12,6 +14,20 @@ What must agree, and how closely (SignTopK):
   kernel adds in another order than PyTorch (a few ulps); within
   ``BF16_RTOL`` (one bfloat16 ulp) for bfloat16, because a scale a few
   float32 ulps apart can round q to the neighbouring bfloat16 value.
+
+QSGD cannot agree bit for bit: the kernel adds a tile's x^2 in another order
+than PyTorch, and an ulp of difference in the norm can flip floor(level), or
+flip u < level - floor(level) where u lies within ulps of that fraction. A
+flip moves the element by exactly one level, norm / s. So an element passes
+(:func:`compare_qsgd`) when
+
+* it agrees within ``F32_RTOL`` (float32) or ``BF16_RTOL`` (bfloat16) of
+  its magnitude, or
+* it differs by one level, and the other side's fraction
+  ``level - floor(level)``, or ``u`` minus that fraction, lies within
+  ``QSGD_BOUNDARY_ULPS`` ulps of ``level`` of a boundary.
+
+Any other mismatch fails; the boundary flips are counted.
 """
 from __future__ import annotations
 
@@ -20,7 +36,9 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels import ops
+from repro_torch.kernels.qsgd import qsgd_blocks, qsgd_blocks_plain
 from repro_torch.kernels.sign_topk import (BLOCK, _row_threshold,
                                            sign_topk_blocks,
                                            sign_topk_blocks_plain)
@@ -207,3 +225,156 @@ def check_payload_reconstructs(device: torch.device) -> None:
         if not torch.equal(rebuilt[:x.shape[0]], q):
             raise AssertionError(f"payload does not rebuild q at d="
                                  f"{x.shape[0]}, k={k}")
+
+
+# --------------------------------------------------------------------- QSGD
+
+QSGD_BOUNDARY_ULPS = 4
+# (kind, n_tiles, dtype, s): the cases of tests/test_kernels.py
+#   normal - x ~ N(0, 1), u ~ U[0, 1)
+#   zeros  - an all-zero tile: zeros out, never NaN
+QSGD_CASES = tuple(
+    [("normal", nb, dt, s) for nb in (1, 4, 16) for s in (4, 16, 64)
+     for dt in ("float32", "bfloat16")]
+    + [("zeros", 2, dt, 16) for dt in ("float32", "bfloat16")])
+QSGD_RAGGED_D = (1, 1023, 1025, 2500)
+
+
+def make_qsgd_case(spec: Tuple, device: torch.device, seed: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Inputs (x, u, s) of one case, from a numpy seed."""
+    kind, nb, dt, s = spec
+    rng = np.random.default_rng([seed, nb, s])
+    if kind == "normal":
+        x = rng.standard_normal((nb, BLOCK))
+    elif kind == "zeros":
+        x = np.zeros((nb, BLOCK))
+    else:
+        raise ValueError(kind)
+    u = rng.random((nb, BLOCK), dtype=np.float32)
+    xt = torch.tensor(x, dtype=torch.float32).to(getattr(torch, dt))
+    return xt.to(device), torch.tensor(u, device=device), s
+
+
+def compare_qsgd(x: torch.Tensor, u: torch.Tensor, s: int,
+                 out: torch.Tensor, want: torch.Tensor = None, spec=None
+                 ) -> Tuple[float, int]:
+    """Hold ``out`` (the kernel's, for CUDA tensors) against ``want`` (by
+    default the plain version on the same inputs) with the module's QSGD
+    comparator. Raises AssertionError on any mismatch that is not a
+    one-level flip at a boundary; returns (largest absolute difference over
+    the elements that agree within the tolerance, number of boundary
+    flips)."""
+    if want is None:
+        want = qsgd_blocks_plain(x, u, s)
+    f32 = torch.float32
+    xf = x.to(f32).reshape(-1, BLOCK)
+    uf = u.to(f32).reshape(-1, BLOCK)
+    a = out.to(f32).reshape(-1, BLOCK)
+    b = want.to(f32).reshape(-1, BLOCK)
+    if out.shape != want.shape or out.dtype != want.dtype:
+        raise AssertionError(f"qsgd: output {out.dtype} {tuple(out.shape)} "
+                             f"!= {want.dtype} {tuple(want.shape)} ({spec})")
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"qsgd: non-finite output ({spec})")
+    rtol = F32_RTOL if x.dtype == f32 else BF16_RTOL
+    err = (a - b).abs()
+    close = err <= rtol * torch.maximum(a.abs(), b.abs())
+    n_flip = 0
+    if not bool(close.all()):
+        norm = torch.sqrt(torch.sum(xf * xf, dim=1, keepdim=True))
+        safe = torch.where(norm > 0, norm, 1.0)
+        level = xf.abs() / safe * s
+        frac = level - torch.floor(level)
+        win = QSGD_BOUNDARY_ULPS * (torch.nextafter(level, level + 1.0)
+                                    - level)
+        edge = ((frac <= win) | (1.0 - frac <= win)
+                | ((uf - frac).abs() <= win))
+        step = (norm / s).expand_as(a)
+        one_level = (err - step).abs() <= rtol * (step + a.abs() + b.abs())
+        bad = ~close & ~(edge & one_level)
+        if bool(bad.any()):
+            i = torch.nonzero(bad)[0].tolist()
+            raise AssertionError(
+                f"qsgd: {int(bad.sum())} elements differ beyond rtol {rtol} "
+                f"and are no one-level flip at a boundary; first at tile "
+                f"{i[0]} lane {i[1]}: {float(a[i[0], i[1]])} vs "
+                f"{float(b[i[0], i[1]])} ({spec})")
+        n_flip = int((~close).sum())
+    agree = torch.where(close, err, 0.0)
+    return (float(agree.max()) if err.numel() else 0.0), n_flip
+
+
+def check_qsgd(x: torch.Tensor, u: torch.Tensor, s: int, spec=None
+               ) -> Tuple[float, int]:
+    """``qsgd_blocks`` (the kernel, for CUDA tensors) against the plain
+    version on the same inputs (see :func:`compare_qsgd`)."""
+    return compare_qsgd(x, u, s, qsgd_blocks(x, u, s), spec=spec)
+
+
+def check_qsgd_chunked(x: torch.Tensor, u: torch.Tensor, s: int,
+                       chunk_rows: int, spec=None) -> Tuple[float, int]:
+    """One launch over the whole ``(n_tiles, BLOCK)`` input, held against
+    the plain version ``chunk_rows`` tiles at a time (its temporaries at
+    the training buffer's shape would not fit on the card). Returns the
+    largest absolute difference and the boundary flips over every tile."""
+    out = qsgd_blocks(x, u, s)
+    err, flips = 0.0, 0
+    for lo in range(0, x.shape[0], chunk_rows):
+        hi = min(x.shape[0], lo + chunk_rows)
+        e, f = compare_qsgd(x[lo:hi], u[lo:hi], s, out[lo:hi],
+                            spec=(spec, f"tiles {lo}:{hi}"))
+        err, flips = max(err, e), flips + f
+    return err, flips
+
+
+def check_all_qsgd(device: torch.device
+                   ) -> Iterator[Tuple[Tuple, float, int]]:
+    """Every case of :data:`QSGD_CASES`: yields (case, max_abs_err,
+    boundary flips)."""
+    for spec in QSGD_CASES:
+        yield (spec, *check_qsgd(*make_qsgd_case(spec, device), spec=spec))
+
+
+def check_ops_qsgd_ragged(device: torch.device, s: int = 16
+                          ) -> Tuple[float, int]:
+    """``ops.qsgd`` on ragged lengths with threefry noise against the plain
+    version on the zero-padded tiles fed the same draw: the output has
+    length d and equals the padded result's head. Returns (max_abs_err,
+    boundary flips)."""
+    rng = np.random.default_rng(5)
+    err, flips = 0.0, 0
+    for d in QSGD_RAGGED_D:
+        x = torch.tensor(rng.standard_normal(d), dtype=torch.float32,
+                         device=device)
+        key = prng.PRNGKey(d)
+        got = ops.qsgd(x, key, s)
+        if got.shape != (d,):
+            raise AssertionError(f"ops.qsgd at d={d} gave {tuple(got.shape)}")
+        nb = -(-d // BLOCK)
+        xp = torch.zeros(nb * BLOCK, device=device)
+        xp[:d] = x
+        xp = xp.view(nb, BLOCK)
+        u = prng.uniform(key, (nb, BLOCK)).to(device)
+        got_p = torch.zeros(nb * BLOCK, device=device)
+        got_p[:d] = got
+        e, f = compare_qsgd(xp, u, s, got_p.view(nb, BLOCK),
+                            spec=f"ops.qsgd d={d}")
+        err, flips = max(err, e), flips + f
+    return err, flips
+
+
+def check_qsgd_unbiased(device: torch.device, draws: int = 256, s: int = 64
+                        ) -> float:
+    """``test_qsgd_kernel_unbiased``: the mean of ``draws`` quantizations
+    of one tile under keys 0..draws-1 lies within 0.15 of x everywhere
+    (s = 64 keeps the variance factor at 0.25). Returns max |mean - x|."""
+    x = torch.tensor(np.random.default_rng(0).standard_normal(BLOCK),
+                     dtype=torch.float32, device=device)
+    total = torch.zeros_like(x)
+    for i in range(draws):
+        total += ops.qsgd(x, prng.PRNGKey(i), s)
+    gap = float((total / draws - x).abs().max())
+    if gap >= 0.15:
+        raise AssertionError(f"qsgd mean over {draws} keys is {gap} from x")
+    return gap

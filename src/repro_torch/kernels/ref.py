@@ -1,5 +1,5 @@
 """Plain PyTorch oracles for the port's kernels (counterpart of
-``repro/kernels/ref.py:18-71``).
+``repro/kernels/ref.py``).
 
 Semantics are the blockwise operators: inputs are processed in tiles of
 ``block`` elements, and Top-k selection, scales and thresholds are per tile.
@@ -64,3 +64,20 @@ def sign_topk_ref(x_half: torch.Tensor, x_hat: torch.Tensor,
     x_hat_new = x_hat + q.reshape(-1)
     vals = torch.gather(q, 1, top_idx)
     return q.reshape(-1), x_hat_new, vals, top_idx.to(torch.int32)
+
+
+def qsgd_ref(x: torch.Tensor, u: torch.Tensor, s: int, block: int = BLOCK
+             ) -> torch.Tensor:
+    """Blockwise QSGD with s levels (``ref.py:74``); u: uniform [0, 1)
+    noise of x's shape. Per block: norm = ||x_b||; |x|/norm * s rounded
+    stochastically; out = norm * sign(x) * level / s (unbiased)."""
+    n = x.shape[0] // block
+    xb = x.reshape(n, block).to(torch.float32)
+    ub = u.reshape(n, block).to(torch.float32)
+    norm = torch.sqrt(torch.sum(xb * xb, dim=1, keepdim=True))
+    safe = torch.where(norm > 0, norm, 1.0)
+    level = xb.abs() / safe * s
+    low = torch.floor(level)
+    q = (low + (ub < (level - low)).to(torch.float32)) / s
+    out = norm * torch.sign(xb) * q
+    return out.reshape(-1).to(x.dtype)

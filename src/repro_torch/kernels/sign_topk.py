@@ -99,7 +99,7 @@ def _launch(x_half: torch.Tensor, x_hat: Optional[torch.Tensor], trig: float,
     scale = torch.empty((n,), dtype=torch.float32, device=x_half.device)
     if n == 0:
         return q, x_hat_new, scale
-    lib = kernels.library()
+    lib = kernels.library("sign_topk")
     fn = kernels.bind(lib, _SYMBOLS[x_half.dtype], _ARGTYPES)
     with torch.cuda.device(x_half.device):
         stream = torch.cuda.current_stream(x_half.device).cuda_stream

@@ -136,8 +136,10 @@ def test_block_top_frac_payload_equals_reference(frac):
 def test_compressor_refusals():
     with pytest.raises(ValueError):
         compression.TopFrac(frac=0.0)
-    with pytest.raises(NotImplementedError):
-        compression.TopFrac(frac=0.1)(torch.zeros(8))
+    with pytest.raises(ValueError):
+        compression.TopFrac(k=5)
+    with pytest.raises(ValueError, match="PRNG key"):
+        compression.RandK(k=2)(torch.zeros(8))
     assert compression.Compressor().bits(10) == jcomp.Compressor().bits(10)
 
 
