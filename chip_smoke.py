@@ -47,18 +47,30 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, and the float32 rate outside the
-# tensor cores. The sheet gives no int32 rate: an SM has 64 INT32 lanes to
-# 128 FP32 lanes, so int32 runs at half the float32 rate
+# bound_ms is the least time the card could take for a kernel's function:
+# the bytes it must move (each input read once, each output written once)
+# over the H100 SXM data sheet's HBM3 rate. Both kernels move far more bytes
+# than their function needs operations for.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-INT32_OPS_PER_S = F32_OPS_PER_S / 2
-# SignTopK per element: 31 radix passes of an integer compare and add on the
-# bit patterns (62), about 6 more integer operations for the support and tie
-# masks; about 4 float32 operations for |diff|, the sum and q. The two kinds
-# issue to separate pipes, so the least time is the larger of the two
-SIGN_TOPK_INT_OPS = 68
-SIGN_TOPK_F32_OPS = 4
+# design_ops_ms, a diagnosis and not a bound, logged and left out of the
+# kernels line: an estimate, from the source, of the instructions one design
+# issues, priced at the pipe rates of NVIDIA's arithmetic-instruction
+# throughput table for compute capability 9.0 at 132 SMs and 1.98 GHz.
+# 32-bit integer add, compare, shift, logic and select: 64 results per clock
+# per SM; float32 add and multiply without a fused add: 128 per clock per SM
+# (the data sheet's 67 TFLOP/s counts a fused multiply-add as two)
+SM_CLOCKS_PER_S = 132 * 1.98e9
+INT32_OPS_PER_S = 64 * SM_CLOCKS_PER_S            # 16.7 TOP/s
+F32_OPS_PER_S = 128 * SM_CLOCKS_PER_S             # 33.5 TFLOP/s
+# SignTopK per element, counted from csrc/sign_topk.cu (not from SASS): the
+# |diff| pattern and sign mask 3; the histogram's word, half and address 5;
+# the candidate test 3; the support and tie masks 6 (float compares issue
+# at the integer rate); the scale's and q's mask tests 4; the clear, the two
+# suffix scans and the 20 one-bit passes over the candidates, spread over
+# the tile's 1024 elements, about 4. Float32: the support's sum and q's
+# select, about 3. The pipes run side by side, so the larger one counts
+SIGN_TOPK_INT_OPS = 25
+SIGN_TOPK_F32_OPS = 3
 # QSGD per element: a square and add for the norm, then |x|, a divide, a
 # multiply, floor, a subtract, a compare, an add, a divide, the sign and two
 # multiplies: about 12 float32 operations
@@ -176,16 +188,19 @@ def main() -> int:
         return {fn.__name__: fn.launches for fn in launch_counts}
 
     # ------------------------------------------- 2. kernel vs plain, timing
-    max_err = 0.0
+    # the cases reach magnitudes of 1e35, so their absolute error is kept
+    # apart from the main path's (max_err)
+    cases_err = 0.0
     n_cases = 0
     for _, err in parity.check_all_sign_topk(dev):
-        max_err = max(max_err, err)
+        cases_err = max(cases_err, err)
         n_cases += 1
     parity.check_ensemble_matches_rows(dev)
     parity.check_payload_reconstructs(dev)
     torch.cuda.synchronize()
     log(f"sign_topk kernel == plain version on {n_cases} cases "
-        f"(+ ensemble == rows, payload rebuilds q); max abs err {max_err:.3e}")
+        f"(+ ensemble == rows, payload rebuilds q); max abs err "
+        f"{cases_err:.3e}")
 
     cfg = get_config("qwen1.5-0.5b")
     n_nodes = 4
@@ -207,20 +222,22 @@ def main() -> int:
     topk_ms = time_ms(torch, lambda: torch.topk(x.abs(), k_b, dim=1), 3)
     elements = rows * BLOCK
     bytes_moved = elements * (4 + 4) + rows * 4   # diff in; q and scales out
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = max(elements * SIGN_TOPK_INT_OPS / INT32_OPS_PER_S,
                  elements * SIGN_TOPK_F32_OPS / F32_OPS_PER_S) * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
     log(f"main-path shape ({rows}, {BLOCK}) f32, k_b={k_b}, ensemble mode:")
-    log(f"  kernel_ms {kernel_ms:.4f}")
+    log(f"  kernel_ms {kernel_ms:.4f} ({100 * bound_ms / kernel_ms:.1f}% of "
+        f"the bound's speed)")
     log(f"  plain_ms {plain_ms:.4f} (every tile, {PLAIN_ROWS} tiles per "
         f"call)")
-    log(f"  bound_ms {bound_ms:.4f} (bytes {bytes_moved / 1e9:.2f} GB -> "
-        f"{bytes_ms:.4f} ms; operations -> {ops_ms:.4f} ms)")
+    log(f"  bound_ms {bound_ms:.4f} (bytes: {bytes_moved / 1e9:.2f} GB); "
+        f"design_ops_ms {ops_ms:.4f} (an estimate: {SIGN_TOPK_INT_OPS} int32 "
+        f"operations per element, counted from the source, at "
+        f"{INT32_OPS_PER_S / 1e12:.1f} TOP/s)")
     log(f"  torch.topk(|diff|, {k_b}) selection only: {topk_ms:.4f} ms")
     full_err = parity.check_sign_topk_chunked(x, k_b, PLAIN_ROWS,
                                               spec="main-path shape")
-    max_err = max(max_err, full_err)
+    max_err = full_err
     log(f"  kernel == plain version on all {rows} tiles: max abs err "
         f"{full_err:.3e}")
     del x
@@ -253,15 +270,17 @@ def main() -> int:
             qsgd_blocks_plain(x[lo:lo + PLAIN_ROWS], u[lo:lo + PLAIN_ROWS], 16)
     qsgd_plain_ms = time_ms(torch, qsgd_plain_full, 2)
     q_bytes = elements * (4 + 4 + 4)                 # x and u in; out
-    q_bytes_ms = q_bytes / HBM_BYTES_PER_S * 1e3
+    q_bound_ms = q_bytes / HBM_BYTES_PER_S * 1e3
     q_ops_ms = elements * QSGD_F32_OPS / F32_OPS_PER_S * 1e3
-    q_bound_ms = max(q_bytes_ms, q_ops_ms)
     log(f"qsgd at ({rows}, {BLOCK}) f32, s=16:")
-    log(f"  kernel_ms {qsgd_ms:.4f}")
+    log(f"  kernel_ms {qsgd_ms:.4f} ({100 * q_bound_ms / qsgd_ms:.1f}% of "
+        f"the bound's speed)")
     log(f"  plain_ms {qsgd_plain_ms:.4f} (every tile, {PLAIN_ROWS} tiles "
         f"per call)")
-    log(f"  bound_ms {q_bound_ms:.4f} (bytes {q_bytes / 1e9:.2f} GB -> "
-        f"{q_bytes_ms:.4f} ms; operations -> {q_ops_ms:.4f} ms)")
+    log(f"  bound_ms {q_bound_ms:.4f} (bytes: {q_bytes / 1e9:.2f} GB); "
+        f"design_ops_ms {q_ops_ms:.4f} (an estimate: {QSGD_F32_OPS} float32 "
+        f"operations per element, counted from the source, at "
+        f"{F32_OPS_PER_S / 1e12:.1f} TFLOP/s)")
     full_q_err, full_flips = parity.check_qsgd_chunked(
         x, u, 16, PLAIN_ROWS, spec="main-path shape")
     q_err, q_flips = max(q_err, full_q_err), q_flips + full_flips
@@ -565,12 +584,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/sign_topk.py:122",
         "launches": launches,
         "launches_by_path": by_path("sign_topk_blocks"),
-        "max_abs_err": max_err,
+        "max_abs_err": max_err, "cases_max_abs_err": cases_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-        "plain_tiles_per_call": PLAIN_ROWS, "bytes_ms": bytes_ms,
-        "ops_ms": ops_ms, "topk_selection_only_ms": topk_ms,
+        "bound_by": "bytes", "library_ms": None,
+        "plain_tiles_per_call": PLAIN_ROWS,
+        "topk_selection_only_ms": topk_ms,
         "shape": [rows, BLOCK], "k_b": k_b}, {
         "name": "qsgd_blocks", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qsgd.cu",
@@ -579,11 +597,10 @@ def main() -> int:
         "launches_by_path": by_path("qsgd_blocks"),
         "max_abs_err": q_err, "boundary_flips": q_flips,
         "ms": qsgd_ms, "plain_ms": qsgd_plain_ms, "bound_ms": q_bound_ms,
-        "bound_by": "bytes" if q_bytes_ms >= q_ops_ms else "operations",
-        "library_ms": None,
+        "bound_by": "bytes", "library_ms": None,
         "library_note": "no single PyTorch call computes blockwise QSGD",
-        "plain_tiles_per_call": PLAIN_ROWS, "bytes_ms": q_bytes_ms,
-        "ops_ms": q_ops_ms, "shape": [rows, BLOCK], "s": 16}]}
+        "plain_tiles_per_call": PLAIN_ROWS,
+        "shape": [rows, BLOCK], "s": 16}]}
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(report))
     print(card_line())

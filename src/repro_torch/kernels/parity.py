@@ -53,7 +53,22 @@ BF16_RTOL = 2.0 ** -7
 #   zeros   - all-zero input: must stay silent
 #   ragged  - a flat vector of d = n_tiles elements (the reference tests'
 #             ragged lengths), zero-padded to whole tiles as ops.py pads it
+# and the edges of the kernel's histogram-and-filter select, in ensemble and
+# fused mode (fused: x_half = 2 diff, x_hat = diff, so diff is exact):
+#   narrow  - |diff| = 1 + j 2**-23, j < 1024: every element shares the first
+#             and the second digit, so all 1024 are candidates
+#   octave  - |diff| uniform in [1, 2): one exponent, 8 first digits
+#   spread  - |diff| log-uniform from SPREAD_SMALLEST (subnormal) to 1e35,
+#             with -0.0 lanes (1e35, not 1e38: the scale is a float32 sum
+#             of up to 1024 magnitudes and must stay finite to be compared)
+#   sparse  - 50 nonzeros per tile: at k_b > 50 the threshold is 0
+#   many    - 8192 tiles cycling through the kinds above, normal, zeros and
+#             const in one launch: more tiles than resident warps, so each
+#             warp clears its histogram and counter between tiles
 RAGGED_D = (1, 1023, 1025, 2500, 3089)
+SELECT_EDGE_KINDS = ("narrow", "octave", "spread", "sparse")
+MANY_KINDS = ("normal", *SELECT_EDGE_KINDS, "zeros", "const")
+SPREAD_SMALLEST = 1e-40
 SIGN_TOPK_CASES = tuple(
     [("normal", nb, dt, k_b, trig, True)
      for nb in (1, 2, 8, 16, 32) for dt in ("float32", "bfloat16")
@@ -64,20 +79,61 @@ SIGN_TOPK_CASES = tuple(
        for k_b in (1, 103, 1024)]
     + [("zeros", 2, dt, 128, 1.0, True) for dt in ("float32", "bfloat16")]
     + [("ragged", d, dt, k_b, 1.0, False) for d in RAGGED_D
-       for dt in ("float32", "bfloat16") for k_b in (1, 103)])
+       for dt in ("float32", "bfloat16") for k_b in (1, 103)]
+    + [(kind, nb, dt, k_b, 1.0, fused)
+       for kind, nb in [(k, 8) for k in SELECT_EDGE_KINDS] + [("many", 8192)]
+       for dt in ("float32", "bfloat16") for k_b in (1, 103, 1024)
+       for fused in (False, True)])
 
 
-def make_sign_topk_case(spec: Tuple, device: torch.device, seed: int = 0
+def _signed_diff(kind: str, rng: np.random.Generator, nb: int,
+                 smallest: float) -> np.ndarray:
+    """The (nb, BLOCK) diff of one select-edge kind (float64)."""
+    shape = (nb, BLOCK)
+    signs = np.where(rng.random(shape) < 0.5, -1.0, 1.0)
+    if kind == "narrow":
+        return signs * (1.0 + rng.integers(0, BLOCK, shape) * 2.0 ** -23)
+    if kind == "octave":
+        return signs * rng.uniform(1.0, 2.0, shape)
+    if kind == "spread":
+        mag = 10.0 ** rng.uniform(np.log10(smallest), 35.0, shape)
+        return np.where(rng.random(shape) < 0.05, -0.0, signs * mag)
+    if kind == "sparse":
+        out = np.zeros(shape)
+        for r in range(nb):
+            out[r, rng.choice(BLOCK, 50, replace=False)] = \
+                rng.standard_normal(50)
+        return out
+    if kind == "normal":
+        return rng.standard_normal(shape)
+    if kind == "zeros":
+        return np.zeros(shape)
+    if kind == "const":
+        return 7.0 * np.where(np.arange(BLOCK) % 3 == 0, 1.0,
+                              -1.0) * np.ones(shape)
+    if kind == "many":
+        rows = [_signed_diff(MANY_KINDS[r % len(MANY_KINDS)], rng, 1,
+                             smallest) for r in range(nb)]
+        return np.concatenate(rows)
+    raise ValueError(kind)
+
+
+def make_sign_topk_case(spec: Tuple, device: torch.device, seed: int = 0,
+                        smallest: float = SPREAD_SMALLEST
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                    float, int]:
     """Inputs (x_half, x_hat or None, trig, k_b) of one case, from a numpy
-    seed."""
+    seed. ``smallest`` is the least magnitude of the ``spread`` kind (a
+    subnormal by default)."""
     kind, nb, dt, k_b, trig, fused = spec
     rng = np.random.default_rng([seed, nb, k_b, int(trig), int(fused)])
     if kind == "ragged":
         nb = -(-nb // BLOCK)
     shape = (nb, BLOCK)
-    if kind == "normal":
+    if kind in SELECT_EDGE_KINDS or kind == "many":
+        diff = _signed_diff(kind, rng, nb, smallest)
+        xh, xe = 2.0 * diff, diff
+    elif kind == "normal":
         xh = rng.standard_normal(shape)
         xe = 0.3 * rng.standard_normal(shape)
     elif kind == "ties":
@@ -100,6 +156,8 @@ def make_sign_topk_case(spec: Tuple, device: torch.device, seed: int = 0
 
     def tensor(a):
         return torch.tensor(a, dtype=torch.float32).to(dtype).to(device)
+    if not fused and (kind in SELECT_EDGE_KINDS or kind == "many"):
+        xh = xe
     return tensor(xh), (tensor(xe) if fused else None), trig, k_b
 
 

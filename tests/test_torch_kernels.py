@@ -225,3 +225,43 @@ def test_chunked_harness_holds_every_tile():
     with pytest.raises(AssertionError, match="index sets"):
         parity.compare_sign_topk(x[32:], None, 1.0, 103,
                                  (q[32:], None, sc[32:]))
+
+
+# The select edges of the CUDA kernel (kernels/parity.py), at a few tiles:
+# the port's plain version against the reference's XLA leg. XLA on the CPU
+# flushes subnormals to zero (jnp.abs(1e-40) is 0.0 there) while PyTorch and
+# the kernel keep them, so ``spread`` starts at the least normal float32
+# here; its subnormals are held kernel against plain version on the card.
+EDGE_CASES = [(kind, 14 if kind == "many" else 2, dt, k_b, 1.0, fused)
+              for kind in (*parity.SELECT_EDGE_KINDS, "many")
+              for dt in ("float32", "bfloat16") for k_b in (1, 103, 1024)
+              for fused in (False, True)]
+
+
+@pytest.mark.parametrize("spec", EDGE_CASES,
+                         ids=["-".join(map(str, s)) for s in EDGE_CASES])
+def test_select_edges_match_reference(spec):
+    dtype = spec[2]
+    xh_t, xe_t, trig, k_b = parity.make_sign_topk_case(
+        spec, torch.device("cpu"), smallest=1.2e-38)
+    xh = xh_t.float().numpy()
+    xe = np.zeros_like(xh) if xe_t is None else xe_t.float().numpy()
+    q_j, xn_j, sc_j = jst.sign_topk_blocks(
+        jnp.asarray(xh).astype(dtype), jnp.asarray(xe).astype(dtype),
+        jnp.float32(trig), k_b, lowering="xla")
+    q_t, xn_t, sc_t = st.sign_topk_blocks(xh_t, xe_t, trig, k_b)
+    q_j = np.asarray(q_j.astype(jnp.float32))
+    q_t = q_t.float().numpy()
+    av = np.abs(xh - xe)
+    np.testing.assert_array_equal(
+        st._row_threshold(torch.tensor(av), k_b).numpy(),
+        np.asarray(jst._row_threshold(jnp.asarray(av), k_b)))
+    np.testing.assert_array_equal(q_t != 0, q_j != 0)      # support
+    assert int((q_t != 0).sum(axis=1).max()) <= k_b
+    rtol = RTOL if dtype == "float32" else RTOL_BF16
+    _close(q_t, q_j, rtol)
+    _close(sc_t.numpy(), np.asarray(sc_j), RTOL)
+    if xe_t is not None:
+        xn_j = np.asarray(xn_j.astype(jnp.float32))
+        _close(xn_t.float().numpy(), xn_j, rtol,
+               scale=np.abs(xn_j) + np.abs(q_j))
