@@ -24,12 +24,29 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       tile of that diff;
    b. the kernel suite (``launch/bench_kernels.py --full``: SignTopK, QSGD
       and the fused trigger against the oracle);
-   c. the reference engine: the golden cases ``sparq`` and ``squarm`` held
-      against ``tests/golden/*.json``, then SPARQ with BlockTopFrac at the
-      paper's convex scale (n=60 ring, d=7840, T=4000; SignTopK once per
-      sync) against the port's CPU run of the same config; then the convex
-      experiment (``launch/convex_bits.py --full``), whose rows use the
-      global operators and launch no kernel;
+   b. the faulty, time-varying trainer at the same full width: a random
+      matchings plan of 4 rounds, 30 % link drop, node 1 straggling half
+      its steps, node 2 offline for steps 1-3 (SignTopK once per sync);
+      every sync's repaired matrix, degrees and liveness held against the
+      plan's own repair on the host, and the bits against the reckoning
+      from them and the triggers; then a profiled run of 3 steps;
+   c. the same flags at reduced width, on the card and on the CPU;
+   d. the generic path at full width: no ``--use-kernel``, a global
+      SignTopK of 10 % of each node's 619,570,176 entries, one sync;
+   e. the kernel suite (``launch/bench_kernels.py --full``: SignTopK, QSGD
+      and the fused trigger against the oracle);
+   f. the reference engine: the golden cases ``sparq``, ``squarm``,
+      ``choco`` and ``sparq_faults`` held against ``tests/golden/*.json``,
+      then SPARQ with BlockTopFrac at the paper's convex scale (n=60 ring,
+      d=7840, T=4000; SignTopK once per sync) against the port's CPU run of
+      the same config; then the convex experiment
+      (``launch/convex_bits.py --full``), whose rows use the global
+      operators and launch no kernel;
+   g. the fault experiment (``launch/faults_bits.py --full``: n=32,
+      d=7840, T=2000), whose BlockTopFrac row launches SignTopK once per
+      sync, and a profiled run of that row for its idle share; the topology
+      experiment (``launch/topology_bits.py``) at its quick size; then both
+      in quick mode on the card and on the CPU, row against row;
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -79,6 +96,14 @@ PLAIN_ROWS = 1 << 16          # tiles per call of the plain version
 MAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--nodes", "4", "--use-kernel",
              "--steps", "6", "--H", "3", "--batch-per-node", "2",
              "--seq-len", "128", "--log-every", "1", "--device", "cuda"]
+FAULT_FLAGS = ["--dynamic", "matchings", "--dynamic-rounds", "4",
+               "--link-drop", "0.3", "--stragglers", "1",
+               "--straggler-frac", "0.5", "--dropout-window", "2:1:4",
+               "--fault-seed", "4"]
+FAULT_ARGS = MAIN_ARGS + FAULT_FLAGS
+# the generic path: no --use-kernel, one sync in 3 steps
+GENERIC_ARGS = [a for a in MAIN_ARGS if a != "--use-kernel"]
+GENERIC_ARGS[GENERIC_ARGS.index("--steps") + 1] = "3"
 
 
 def log(msg: str) -> None:
@@ -106,6 +131,120 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def with_arg(argv, flag, value):
+    """``argv`` with ``flag``'s value replaced (or ``flag`` appended)."""
+    out = list(argv)
+    if flag in out:
+        out[out.index(flag) + 1] = value
+    else:
+        out += [flag, value]
+    return out
+
+
+def run_logged(train, argv):
+    """The train entry with every sync's engine record kept on the host
+    (the diff itself is not copied)."""
+    import torch
+    syncs = []
+
+    def keep(diff, info):
+        syncs.append({k: v.detach().cpu() if isinstance(v, torch.Tensor)
+                      else v for k, v in info.items()})
+    return train.run(argv, on_sync=keep), syncs
+
+
+def reckoned_bits(syncs, payload) -> float:
+    """flag + trig * payload to each live neighbour, in float64."""
+    return sum(float(((1.0 + s["trig"].double() * payload)
+                      * s["deg"].double()).sum()) for s in syncs)
+
+
+def flips_only(card, cpu, atol=5e-4, block=1024, per_tile=8,
+               tile_share=0.01):
+    """Hold the card's final ``params`` and ``x_hat`` against the CPU's run
+    of the same flags. The two sum float32 gradients in other orders, so
+    where two |diff| entries of a tile lie within that noise of each other
+    at the k-th place, the runs select different entries (a boundary flip)
+    and x_hat differs there by a whole step. So x_hat may differ beyond
+    ``atol`` only on a few entries of a few tiles (a wrong selection touches
+    about k_b of a tile), and params only in the columns where some node's
+    x_hat differs at all: mixing moves a column by its own x_hat only.
+    Returns the counts and the largest gaps."""
+    dx = (card["x_hat"].float().cpu() - cpu["x_hat"].float()).abs()
+    far = (dx > atol).view(dx.shape[0], -1, block).sum(-1)
+    n_tiles = int((far > 0).sum())
+    if int(far.max()) > per_tile or n_tiles > tile_share * far.numel():
+        raise AssertionError(
+            f"card against CPU: x_hat differs beyond {atol} in {n_tiles} of "
+            f"{far.numel()} tiles, up to {int(far.max())} entries in one")
+    cols = (dx > 1e-6).any(0)
+    dp = (card["params"].float().cpu() - cpu["params"].float()).abs()
+    rest = dp[:, ~cols]
+    if rest.numel() and float(rest.max()) > atol:
+        raise AssertionError(f"card against CPU: params differ by "
+                             f"{float(rest.max())} outside the flipped "
+                             f"columns")
+    return {"flip_tiles": n_tiles, "tiles": far.numel(),
+            "xhat_far": int(far.sum()), "flip_cols": int(cols.sum()),
+            "xhat_gap": float(dx.max()), "params_gap": float(dp.max()),
+            "params_gap_rest": float(rest.max()) if rest.numel() else 0.0}
+
+
+ALLOC_KEYS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+
+
+def alloc_counts(torch):
+    """The caching allocator's cudaMalloc and cudaFree calls, and its
+    free-everything-and-retry events, so far in the process."""
+    stats = torch.cuda.memory_stats()
+    return {k: stats.get(k, 0) for k in ALLOC_KEYS}
+
+
+def median(values):
+    v = sorted(values)
+    mid = len(v) // 2
+    return v[mid] if len(v) % 2 else (v[mid - 1] + v[mid]) / 2
+
+
+def step_times(name, s_step, before, after) -> str:
+    """One run's step times, their steady mean and median (steps 2 on),
+    and the allocator's calls during the run."""
+    rest = s_step[1:]
+    calls = {k: after[k] - before[k] for k in ALLOC_KEYS}
+    return (f"{name}: s/step {[round(v, 4) for v in s_step]}; steps 2 on: "
+            f"mean {sum(rest) / len(rest):.4f} s, median "
+            f"{median(rest):.4f} s; allocator during the run {calls}")
+
+
+def profiled(torch, fn, steps, wall_s_per_step, tables=()):
+    """Run ``fn`` under torch.profiler and print its key averages sorted by
+    each ``(sort_by, row_limit)`` of ``tables``: returns (device s per step,
+    device activities per step, idle share against the unprofiled wall time
+    per step). The profiler's events hold reference cycles, so they are
+    collected here, timed, and not in a later measured run."""
+    import gc
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_s = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA) / 1e6 / steps
+    acts = sum(e.count for e in events
+               if e.device_type == DeviceType.CUDA) / steps
+    for sort_by, rows in tables:
+        print(events.table(sort_by=sort_by, row_limit=rows), flush=True)
+    del prof, events
+    t0 = time.perf_counter()
+    freed = gc.collect()
+    log(f"freeing the profile: gc.collect() took "
+        f"{time.perf_counter() - t0:.3f} s for {freed} objects")
+    return device_s, acts, 1.0 - device_s / wall_s_per_step
 
 
 def check_golden(got_state, trace, want, case) -> None:
@@ -158,7 +297,8 @@ def main() -> int:
     from repro_torch.kernels.qsgd import qsgd_blocks, qsgd_blocks_plain
     from repro_torch.kernels.sign_topk import (BLOCK, sign_topk_blocks,
                                                sign_topk_blocks_plain)
-    from repro_torch.launch import bench_kernels, convex_bits, train
+    from repro_torch.launch import (bench_kernels, convex_bits, faults_bits,
+                                    topology_bits, train)
     from repro_torch.models.transformer import init_params, param_shapes
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -337,7 +477,9 @@ def main() -> int:
     # ---------------------------------------------------------- 3. main path
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
+    alloc0 = alloc_counts(torch)
     result = train.run(MAIN_ARGS)
+    alloc1 = alloc_counts(torch)
     counts = {"train": read_counts()}
     launches = counts["train"]["sign_topk_blocks"]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -371,9 +513,7 @@ def main() -> int:
     s_step = result["s_per_step"]
     log(f"main path: {launches} kernel launches, {trig} triggers, bits "
         f"{got_bits:.6e} == reckoned {want_bits:.6e}")
-    log(f"main path: s/step {[round(v, 4) for v in s_step]} (first step "
-        f"includes CUDA/cuBLAS start-up); steady mean "
-        f"{sum(s_step[1:]) / len(s_step[1:]):.4f} s")
+    log(step_times("main path", s_step, alloc0, alloc1))
     log(f"main path: peak memory allocated {peak_gb:.2f} GB")
 
     k_b_main = step.k_b
@@ -386,31 +526,17 @@ def main() -> int:
     # the un-profiled steady wall time above (the profiler slows the host).
     # Its sync's diff, the kernel's real input on the main path, is kept
     # (one 9.9 GB device copy, in the profiled time) to check the kernel on
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    prof_args = list(MAIN_ARGS)
-    prof_args[prof_args.index("--steps") + 1] = "3"
+    prof_args = with_arg(MAIN_ARGS, "--steps", "3")
     captured = []
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        train.run(prof_args,
-                  on_sync=lambda diff: captured.append(diff.clone()))
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    device_s = sum(e.self_device_time_total for e in events
-                   if e.device_type == DeviceType.CUDA) / 1e6 / 3
-    launches_per_step = sum(e.count for e in events
-                            if e.device_type == DeviceType.CUDA) / 3
     steady = sum(s_step[1:]) / len(s_step[1:])
+    device_s, launches_per_step, idle = profiled(
+        torch, lambda: train.run(prof_args, on_sync=lambda diff, info:
+                                 captured.append(diff.clone())), 3, steady,
+        tables=(("self_device_time_total", 12), ("self_cpu_time_total", 8)))
     log(f"profiled 3 steps: device time {device_s:.4f} s/step over "
         f"{launches_per_step:.0f} kernels/step; against the steady "
-        f"{steady:.4f} s/step the device is idle "
-        f"{100 * (1 - device_s / steady):.1f}% of the time")
-    print(events.table(sort_by="self_device_time_total", row_limit=12),
-          flush=True)
-    print(events.table(sort_by="self_cpu_time_total", row_limit=8),
-          flush=True)
+        f"{steady:.4f} s/step the device is idle {100 * idle:.1f}% of the "
+        f"time")
 
     if len(captured) != 1 or captured[0].shape != (n_nodes, d_pad):
         raise AssertionError("profiled run: expected one sync's (n, D_pad) "
@@ -425,7 +551,167 @@ def main() -> int:
     del diff_tiles
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------ 3b. the kernel suite
+    # ------------------- 3b. the faulty, time-varying trainer at full width
+    from repro_torch.core import topology as topo_mod
+    from repro_torch.core.faults import DropoutWindow, FaultPlan
+    # a repaired or time-varying W mixes by the dense product, a float32
+    # GEMM of (4, 4) by one column chunk; its first call in the process is
+    # timed apart from the trainer's steps
+    w4 = torch.rand((n_nodes, n_nodes), device=dev)
+    chunk = torch.rand((n_nodes, 1 << 22), device=dev)
+    mix_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.tensordot(w4, chunk, dims=1)
+        torch.cuda.synchronize()
+        mix_s.append(time.perf_counter() - t0)
+    log(f"dense mix of one (4, 4194304) float32 chunk: first call "
+        f"{mix_s[0]:.4f} s, then {mix_s[1] * 1e3:.3f} and "
+        f"{mix_s[2] * 1e3:.3f} ms")
+    del w4, chunk
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    alloc0 = alloc_counts(torch)
+    result, syncs = run_logged(train, FAULT_ARGS)
+    alloc1 = alloc_counts(torch)
+    counts["faulty_trainer"] = read_counts()
+    f_launches = counts["faulty_trainer"]["sign_topk_blocks"]
+    f_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    state, step = result["state"], result["train_step"]
+    f_losses, f_step_s = result["losses"], result["s_per_step"]
+    log(f"faulty trainer: plan {step.plan.name}, losses {f_losses}")
+    if len(f_losses) != 6 or not all(math.isfinite(v) for v in f_losses):
+        raise AssertionError(f"faulty trainer: losses {f_losses}")
+    if not (state["sync_rounds"] == len(syncs) == f_launches == 2):
+        raise AssertionError(f"faulty trainer: {f_launches} kernel launches "
+                             f"for {state['sync_rounds']} syncs (want 2)")
+    # the plan and its faults rebuilt here from the flags' values, and each
+    # sync's repair redone on the host
+    plan = topo_mod.make_plan("ring", n_nodes, dynamic="matchings", rounds=4,
+                              seed=0)
+    fplan = FaultPlan(link_drop=0.3, stragglers=(1,), straggler_frac=0.5,
+                      dropout=(DropoutWindow(2, 1, 4),), seed=4)
+    np.testing.assert_array_equal(step.plan.ws, plan.ws)
+    for s in syncs:
+        W, deg, live = fplan.apply(
+            torch.tensor(plan.ws[s["sync_round"] % plan.R],
+                         dtype=torch.float32), s["t"], s["sync_round"])
+        if not (torch.equal(s["W"], W) and torch.equal(s["deg"], deg)
+                and torch.equal(s["live"], live)):
+            raise AssertionError(f"faulty trainer: sync {s['sync_round']} "
+                                 f"differs from the plan's own repair")
+        if (s["trig"] & ~live).any():
+            raise AssertionError("faulty trainer: an offline node sent")
+        log(f"faulty trainer: sync {s['sync_round']} at t={s['t']}: "
+            f"deg_eff {deg.tolist()}, live {live.tolist()}, triggers "
+            f"{s['trig'].tolist()}")
+    first = syncs[0]
+    if first["t"] != 2 or first["live"][2] or first["trig"][2] or \
+            first["deg"][2] != 0:
+        raise AssertionError("faulty trainer: node 2 was not silent at the "
+                             "sync of t=2")
+    f_trig = int(state["triggers"])
+    f_want = reckoned_bits(syncs, step.payload_bits)
+    f_bits = float(state["bits"])
+    if f_trig != sum(int(s["trig"].sum()) for s in syncs) or \
+            abs(f_bits - f_want) > 1e-6 * f_want:
+        raise AssertionError(f"faulty trainer: bits {f_bits} != reckoned "
+                             f"{f_want} from {f_trig} triggers")
+    if state["params"][:, D:].any() or state["x_hat"][:, D:].any():
+        raise AssertionError("faulty trainer: the padded tail is not zero")
+    f_steady = sum(f_step_s[1:]) / len(f_step_s[1:])
+    log(f"faulty trainer: {f_launches} kernel launches, {f_trig} triggers, "
+        f"bits {f_bits:.6e} == reckoned {f_want:.6e}; peak memory allocated "
+        f"{f_peak_gb:.2f} GB")
+    log(step_times("faulty trainer", f_step_s, alloc0, alloc1))
+    del result, state, step
+    torch.cuda.empty_cache()
+    f_device_s, f_acts, f_idle = profiled(
+        torch, lambda: train.run(with_arg(FAULT_ARGS, "--steps", "3")), 3,
+        f_steady, tables=(("self_device_time_total", 8),))
+    f_median = median(f_step_s[1:])
+    log(f"faulty trainer, profiled 3 steps: device time {f_device_s:.4f} "
+        f"s/step over {f_acts:.0f} kernels/step; idle {100 * f_idle:.1f}% "
+        f"against the steady mean {f_steady:.4f} s/step, "
+        f"{100 * (1 - f_device_s / f_median):.1f}% against the median "
+        f"{f_median:.4f} s")
+    torch.cuda.empty_cache()
+
+    # ------------- 3c. the same flags at reduced width, the card against CPU
+    red = {}
+    for where in ("cuda", "cpu"):
+        argv = with_arg(FAULT_ARGS + ["--reduced"], "--device", where)
+        out, red_syncs = run_logged(train, argv)
+        red[where] = (out["state"], out["losses"], red_syncs)
+    (a, la, sa), (b, lb, sb) = red["cuda"], red["cpu"]
+    same = (int(a["triggers"]) == int(b["triggers"])
+            and a["sync_rounds"] == b["sync_rounds"]
+            and float(a["bits"]) == float(b["bits"])
+            and [s["trig"].tolist() for s in sa]
+            == [s["trig"].tolist() for s in sb]
+            and all(torch.equal(x["W"], y["W"]) for x, y in zip(sa, sb)))
+    if not same:
+        raise AssertionError("reduced faulty trainer: card and CPU differ in "
+                             "triggers, sync rounds, mixing or bits")
+    # the card's float32 sums run in another order than the CPU's: the
+    # losses have differed by at most 1.8e-5 relative (PERF.md); the final
+    # iterate and x_hat are held at the parity tests' atol up to boundary
+    # flips (flips_only)
+    loss_gap = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+    np.testing.assert_allclose(la, lb, rtol=1e-4,
+                               err_msg="reduced faulty trainer: losses")
+    fl = flips_only(a, b)
+    log(f"reduced faulty trainer, card == CPU: {int(a['triggers'])} "
+        f"triggers, {a['sync_rounds']} syncs, bits {float(a['bits']):.6e}; "
+        f"losses {la} (CPU {lb}), largest relative gap {loss_gap:.3e}; "
+        f"x_hat beyond 5e-4 on {fl['xhat_far']} entries in "
+        f"{fl['flip_tiles']} of {fl['tiles']} tiles (largest gap "
+        f"{fl['xhat_gap']:.3e}); params largest gap {fl['params_gap']:.3e}, "
+        f"{fl['params_gap_rest']:.3e} outside the {fl['flip_cols']} flipped "
+        f"columns")
+    del red, a, b
+
+    # ------------------------------- 3d. the generic path at full width
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    alloc0 = alloc_counts(torch)
+    result, g_syncs = run_logged(train, GENERIC_ARGS)
+    alloc1 = alloc_counts(torch)
+    counts["generic_trainer"] = read_counts()
+    g_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    state, step = result["state"], result["train_step"]
+    g_losses, g_step_s = result["losses"], result["s_per_step"]
+    if len(g_losses) != 3 or not all(math.isfinite(v) for v in g_losses):
+        raise AssertionError(f"generic path: losses {g_losses}")
+    if step.use_kernel or any(counts["generic_trainer"].values()):
+        raise AssertionError(f"generic path launched a kernel: "
+                             f"{counts['generic_trainer']}")
+    g_trig = int(state["triggers"])
+    g_want = reckoned_bits(g_syncs, step.payload_bits)
+    g_bits = float(state["bits"])
+    if state["sync_rounds"] != 1 or abs(g_bits - g_want) > 1e-6 * g_want:
+        raise AssertionError(f"generic path: bits {g_bits} != reckoned "
+                             f"{g_want}")
+    # x_hat starts at 0, so after one sync a triggered node's row holds
+    # exactly its k = ceil(0.1 D) selected entries
+    k_glob = math.ceil(0.1 * D)
+    moved = (state["x_hat"] != 0).sum(dim=1).tolist()
+    want_moved = [k_glob if t else 0 for t in g_syncs[0]["trig"].tolist()]
+    if moved != want_moved:
+        raise AssertionError(f"generic path: x_hat moved on {moved} "
+                             f"entries, want {want_moved}")
+    g_sync_s = g_step_s[2] - g_step_s[1]
+    log(f"generic path (global TopFrac(0.1), k={k_glob} of D={D}): losses "
+        f"{g_losses}, {g_trig} triggers, bits {g_bits:.6e} == reckoned; "
+        f"s/step {[round(v, 4) for v in g_step_s]}: the sync step takes "
+        f"{g_sync_s:.4f} s more than the local step before it; peak memory "
+        f"allocated {g_peak_gb:.2f} GB")
+    log(step_times("generic path", g_step_s, alloc0, alloc1))
+    del result, state, step
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 3e. the kernel suite
     t_p = time.perf_counter()
     zero_counts()
     suite = bench_kernels.run_bench(quick=False, device="cuda")
@@ -441,8 +727,8 @@ def main() -> int:
     log(f"kernel suite: launches {counts['kernel_suite']} "
         f"({time.perf_counter() - t_p:.1f} s)")
 
-    # --------------------------------------------- 3c. the reference engine
-    from repro_torch.core import prng, sparq, topology
+    # --------------------------------------------- 3f. the reference engine
+    from repro_torch.core import baselines, prng, sparq, topology
     from repro_torch.core.compression import BlockTopFrac, SignTopK
     from repro_torch.data import synthetic
     t_p = time.perf_counter()
@@ -460,7 +746,13 @@ def main() -> int:
                                    lr=lr, H=5, gamma=0.3),
         "squarm": sparq.squarm_config(ring6, SignTopK(k=6), lr, H=5,
                                       threshold=thr, beta=0.9,
-                                      nesterov=True, gamma=0.3)}
+                                      nesterov=True, gamma=0.3),
+        "choco": baselines.choco_config(ring6, SignTopK(k=6), lr, gamma=0.3),
+        "sparq_faults": sparq.SparqConfig(
+            topology=ring6, compressor=SignTopK(k=6), threshold=thr, lr=lr,
+            H=5, gamma=0.3, faults=FaultPlan(
+                link_drop=0.3, stragglers=(1,), straggler_frac=0.5,
+                dropout=(DropoutWindow(2, 10, 25),), seed=4))}
     for case, gcfg in golden_cfgs.items():
         with open(os.path.join(ROOT, "tests", "golden", f"{case}.json")) as f:
             want = json.load(f)
@@ -537,17 +829,11 @@ def main() -> int:
     # step's minibatches timed alone on the host
     Xw, Yw = torch.tensor(Xc, device=dev), torch.tensor(Yc, device=dev)
     grad_w = make_grad_c(Xw, Yw, mb_c)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_c:
-        sparq.run(ccfg, grad_w, torch.zeros(d_c, device=dev), 100,
-                  prng.PRNGKey(0))
-        torch.cuda.synchronize()
-    ev_c = prof_c.key_averages()
-    dev_us = sum(e.self_device_time_total for e in ev_c
-                 if e.device_type == DeviceType.CUDA) / 100
-    n_dev = sum(e.count for e in ev_c
-                if e.device_type == DeviceType.CUDA) / 100
+    dev_s, n_dev, idle_c = profiled(
+        torch, lambda: sparq.run(ccfg, grad_w, torch.zeros(d_c, device=dev),
+                                 100, prng.PRNGKey(0)), 100, us_g / 1e6,
+        tables=(("self_cpu_time_total", 8),))
+    dev_us = dev_s * 1e6
     t0 = time.perf_counter()
     for i in range(200):
         prng.randint(prng.split(prng.PRNGKey(i), n_c), (mb_c,), 0, m_c)
@@ -555,10 +841,8 @@ def main() -> int:
     log(f"reference engine, profiled 100 steps: device time {dev_us:.1f} "
         f"us/step over {n_dev:.1f} device activities/step; against the "
         f"unprofiled {us_g:.1f} us/step the device is idle "
-        f"{100 * (1 - dev_us / us_g):.1f}%; one step's minibatch draws "
+        f"{100 * idle_c:.1f}%; one step's minibatch draws "
         f"(split + randint, on the host) {draw_us:.1f} us")
-    print(ev_c.table(sort_by="self_cpu_time_total", row_limit=8),
-          flush=True)
 
     zero_counts()
     convex = convex_bits.run_bench(quick=False, device="cuda")
@@ -574,6 +858,78 @@ def main() -> int:
     log(f"convex experiment: launches {counts['convex']} (its rows use the "
         f"global operators); reference-engine phase "
         f"{time.perf_counter() - t_p:.1f} s")
+
+    # ----------------------------- 3g. the fault and topology experiments
+    t_p = time.perf_counter()
+    zero_counts()
+    fault_rows = faults_bits.run_bench(quick=False, device="cuda")
+    counts["faults_bits"] = read_counts()
+    for r in fault_rows:
+        log(f"faults {r['name']:18s} final_loss {r['final_loss']:.6f} "
+            f"loss_vs_clean {r['loss_vs_clean']:+.6f} bits {r['bits']:.6e} "
+            f"bits_vs_clean {r['bits_ratio_vs_clean']:.4f} triggers "
+            f"{r['trigger_events']} us_per_call {r['us_per_call']:.1f}")
+        if not math.isfinite(r["final_loss"]):
+            raise AssertionError(f"faults {r['name']}: loss not finite")
+    block = next(r for r in fault_rows if r["name"] == "sparq_mixed_block")
+    # the block row's warm-up run and timed run: one launch per sync each
+    if counts["faults_bits"]["sign_topk_blocks"] != 2 * block["sync_rounds"]:
+        raise AssertionError(f"faults: {counts['faults_bits']} launches for "
+                             f"2 x {block['sync_rounds']} block-row syncs")
+    fp_full = faults_bits.problem(quick=False, device="cuda")
+    b_cfg = fp_full.sparq(fp_full.mixed, BlockTopFrac(frac=0.1))
+    b_dev_s, b_acts, b_idle = profiled(
+        torch, lambda: sparq.run(b_cfg, fp_full.grad_fn, fp_full.x0, 200,
+                                 prng.PRNGKey(0)), 200,
+        block["us_per_call"] / 1e6, tables=(("self_cpu_time_total", 8),))
+    log(f"faults sparq_mixed_block, profiled 200 steps (40 syncs): device "
+        f"time {b_dev_s * 1e6:.1f} us/step over {b_acts:.1f} device "
+        f"activities/step; against the unprofiled "
+        f"{block['us_per_call']:.1f} us/step the device is idle "
+        f"{100 * b_idle:.1f}%")
+    # the topology experiment runs its quick size on the card (n=16,
+    # d=320, T=300), which keeps the smoke inside its time
+    zero_counts()
+    topo_rows = topology_bits.run_bench(quick=True, device="cuda")
+    counts["topology_bits"] = read_counts()
+    for r in topo_rows:
+        log(f"topology {r['name']:30s} R={r['plan_rounds']} delta "
+            f"{r['delta']:.4f} gamma* {r['gamma_star']:.6f} bits "
+            f"{r['bits']:.6e} consensus {r['consensus_err']:.4f} final_loss "
+            f"{r['final_loss']:.6f} us_per_call {r['us_per_call']:.1f}")
+        if not math.isfinite(r["final_loss"]):
+            raise AssertionError(f"topology {r['name']}: loss not finite")
+    # quick mode, the card's rows against the CPU's: integer channels and
+    # bits equal
+    for bench, rows_g in ((faults_bits, None), (topology_bits, topo_rows)):
+        rows_g = rows_g or bench.run_bench(quick=True, device="cuda")
+        rows_c = bench.run_bench(quick=True, device="cpu")
+        for rg, rc in zip(rows_g, rows_c, strict=True):
+            for col in ("name", "bits", "trigger_events"):
+                if rg[col] != rc[col]:
+                    raise AssertionError(f"{bench.__name__} quick "
+                                         f"{rc['name']}: {col} {rg[col]} on "
+                                         f"the card, {rc[col]} on the CPU")
+            for col in ("t", "sync_rounds", "triggers", "bits"):
+                if rg["trace"][col] != rc["trace"][col]:
+                    raise AssertionError(f"{bench.__name__} quick "
+                                         f"{rc['name']}: trace {col} differs")
+        log(f"{bench.__name__.split('.')[-1]} quick: {len(rows_g)} rows, "
+            f"card == CPU in triggers, sync rounds and bits")
+        if bench is faults_bits:
+            # the full size's block row never triggers (threshold 30 d), so
+            # this quick row is where SignTopK's output reaches x_hat under
+            # faults
+            qb = next(r for r in rows_g if r["name"] == "sparq_mixed_block")
+            if qb["trigger_events"] <= 0:
+                raise AssertionError("faults quick sparq_mixed_block: no "
+                                     "trigger, the kernel's output never "
+                                     "reached x_hat")
+            log(f"faults quick sparq_mixed_block: {qb['trigger_events']} "
+                f"triggers in {qb['sync_rounds']} syncs")
+    log(f"fault and topology experiments: launches "
+        f"{counts['faults_bits']} and {counts['topology_bits']} "
+        f"({time.perf_counter() - t_p:.1f} s)")
 
     # ------------------------------------------------------------- 4. report
     def by_path(name):

@@ -1,5 +1,5 @@
 """Baselines the paper compares against, Section 5 and Figure 1
-(counterpart of ``repro/core/baselines.py``, fault-free).
+(counterpart of ``repro/core/baselines.py``).
 
 * CHOCO-SGD: compressed gossip every iteration, which is SPARQ-SGD with
   H = 1 and c_t = 0; it reuses the SPARQ engine.
@@ -8,9 +8,10 @@
 * Centralized minibatch SGD: every step averages the n nodes' gradients;
   bits are those of a ring all-reduce, ``2 (n-1)/n * 32 d`` per node.
 
-As in :mod:`repro_torch.core.sparq`, ``t`` is a host integer, a step
-returns a new state and leaves the one it is given as it was, and
-``faults=`` raises (ROADMAP.md A.8).
+As in :mod:`repro_torch.core.sparq`, ``t`` is a host integer and a step
+returns a new state and leaves the one it is given as it was. CHOCO and
+vanilla take the same ``faults=`` plan as SPARQ; vanilla gossips every
+step, so its link stream is indexed by ``t``.
 """
 from __future__ import annotations
 
@@ -21,9 +22,9 @@ import torch
 from repro_torch.core import bits as bits_mod
 from repro_torch.core import engine, prng
 from repro_torch.core.compression import Compressor
+from repro_torch.core.faults import FaultPlan, resolve_faults
 from repro_torch.core.schedule import LRSchedule
-from repro_torch.core.sparq import (GradFn, SparqConfig, local_update,
-                                    refuse_faults)
+from repro_torch.core.sparq import GradFn, SparqConfig, local_update
 from repro_torch.core.topology import Topology
 from repro_torch.core.triggers import zero
 from repro_torch.optim.sgd import Optimizer, resolve_optimizer
@@ -32,12 +33,11 @@ from repro_torch.optim.sgd import Optimizer, resolve_optimizer
 def choco_config(topology: Topology, compressor: Compressor, lr: LRSchedule,
                  gamma: Optional[float] = None, momentum: float = 0.0,
                  optimizer: Optional[Optimizer] = None,
-                 faults: Any = None) -> SparqConfig:
-    """CHOCO-SGD == SPARQ-SGD(H=1, c_t=0)."""
-    refuse_faults(faults)
+                 faults: Optional[FaultPlan] = None) -> SparqConfig:
+    """CHOCO-SGD == SPARQ-SGD(H=1, c_t=0), under the same ``faults``."""
     return SparqConfig(topology=topology, compressor=compressor,
                        threshold=zero(), lr=lr, H=1, gamma=gamma,
-                       momentum=momentum, optimizer=optimizer)
+                       momentum=momentum, optimizer=optimizer, faults=faults)
 
 
 class VanillaState(NamedTuple):
@@ -51,28 +51,40 @@ class VanillaState(NamedTuple):
 def make_vanilla_step(topology: Topology, lr: LRSchedule, grad_fn: GradFn,
                       momentum: float = 0.0,
                       optimizer: Optional[Optimizer] = None,
-                      faults: Any = None
+                      faults: Optional[FaultPlan] = None
                       ) -> Callable[[VanillaState, torch.Tensor],
                                     VanillaState]:
-    """Decentralized vanilla SGD: exact neighbour averaging every step."""
-    refuse_faults(faults)
+    """Decentralized vanilla SGD: exact neighbour averaging every step;
+    an active ``faults`` plan skips local steps, drops links at every step
+    and charges only live links."""
     opt = resolve_optimizer(optimizer, momentum)
+    n = topology.n
+    w32 = torch.as_tensor(topology.w, dtype=torch.float32)
     deg_sum = torch.sum(torch.as_tensor(topology.degrees,
                                         dtype=torch.float32))
+    flt = resolve_faults(faults)
+    if flt is not None:
+        flt.validate_for(n)
     ws = {}
 
     def step(state: VanillaState, key: torch.Tensor) -> VanillaState:
         d = state.x.shape[-1]
         dev = state.x.device
         if dev not in ws:
-            ws[dev] = torch.as_tensor(topology.w, dtype=torch.float32,
-                                      device=dev)
+            ws[dev] = w32.to(dev)
         g = grad_fn(state.x, state.t, key)
         x_half, opt_new = local_update(opt, g, state.opt, state.x,
                                        lr(state.t))
+        if flt is None:
+            W, sent = ws[dev], deg_sum
+        else:
+            act = flt.step_mask(state.t, n).to(dev)
+            x_half = torch.where(act[:, None], x_half, state.x)
+            opt_new = flt.gate_update(act, opt_new, state.opt)
+            W, deg, _ = flt.apply(w32, state.t, state.t)
+            W, sent = W.to(dev), torch.sum(deg)
         bits, bits_c = bits_mod.acc_add(
-            state.bits, state.bits_c, deg_sum * bits_mod.dense_bits(d))
-        W = ws[dev]
+            state.bits, state.bits_c, sent * bits_mod.dense_bits(d))
         return VanillaState(x=W @ x_half, opt=opt_new, t=state.t + 1,
                             bits=bits, bits_c=bits_c)
 

@@ -7,8 +7,8 @@ A compression operator C satisfies, for some omega in (0, 1]:
 Every operator of the reference's registry is here: Identity, TopK, RandK,
 Sign, QSGD (the global-norm quantizer, not the blockwise kernel), SignTopK,
 QsTopK, TopFrac and BlockTopFrac, with ``compress_tree``,
-``tree_payload_bits`` and ``make_compressor``. ``omega_certificate`` is not
-ported yet (it draws normals; ROADMAP.md, audits).
+``tree_payload_bits`` and ``make_compressor``. ``omega_certificate`` raises:
+it is not ported yet (it draws normals; ROADMAP.md, audits).
 
 Batching. An operator acts on the last axis; leading axes are independent
 vectors (the reference engine passes its whole ``(n, d)`` ensemble at once,
@@ -61,11 +61,19 @@ class Identity(Compressor):
 
 def _topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
     """0/1 mask (x's dtype) of the k largest |x| along the last axis, ties
-    broken by the lowest index (``compression.py:64``)."""
+    broken by the lowest index (``compression.py:64``): everything above
+    the k-th largest value, then the first ties at it in index order. No
+    sort: at the flat buffer's full width a row holds 6.2e8 entries, whose
+    sort indices alone would take 5 GB."""
     k = min(k, x.shape[-1])
-    idx = torch.sort(x.abs(), dim=-1, descending=True,
-                     stable=True).indices[..., :k]
-    return torch.zeros_like(x).scatter_(-1, idx, 1.0)
+    a = x.abs()
+    thr = torch.topk(a, k, dim=-1, sorted=False).values.amin(
+        dim=-1, keepdim=True)
+    above = a > thr
+    ties = a == thr
+    need = k - above.sum(dim=-1, keepdim=True)
+    rank = torch.cumsum(ties, dim=-1, dtype=torch.int32)
+    return (above | (ties & (rank <= need))).to(x.dtype)
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -358,6 +366,14 @@ _REGISTRY = {
     "signtop_frac": TopFrac,
     "signtopk_block": BlockTopFrac,
 }
+
+
+def omega_certificate(comp: Compressor, d: int, **kw: Any) -> None:
+    """The reference's empirical omega audit (``compression.py:428``): not
+    ported yet, it waits for the audits slice (ROADMAP.md A.5, A.15)."""
+    raise NotImplementedError(
+        "omega_certificate is not ported yet (ROADMAP.md A.5: it draws "
+        "normals and waits for the audits slice)")
 
 
 def make_compressor(name: str, **kw) -> Compressor:

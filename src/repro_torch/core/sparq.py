@@ -19,8 +19,12 @@ it is given: it returns a new one. ``t`` and ``sync_rounds`` are host
 integers; ``triggers`` and the float32 Kahan bit pair live on the ensemble's
 device.
 
-Not ported: time-varying plans (``plan=`` with R > 1) and fault injection
-(``faults=``): both raise (ROADMAP.md A.2, A.8).
+A time-varying plan gossips over ``ws[sync_rounds % R]`` and charges that
+round's degrees. An active fault plan (:mod:`repro_torch.core.faults`)
+freezes skipped nodes' iterates and optimizer state, repairs the round's
+matrix over the surviving links, mutes offline nodes and charges bits on
+live links only; its masks are built on the host and copied to the
+ensemble's device.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 from repro_torch.core import bits as bits_mod
 from repro_torch.core import engine, prng
 from repro_torch.core.compression import BlockTopFrac, Compressor, Identity
+from repro_torch.core.faults import FaultPlan, resolve_faults
 from repro_torch.core.schedule import LRSchedule, fixed
 from repro_torch.core.topology import GossipPlan, Topology
 from repro_torch.core.triggers import ThresholdSchedule, zero
@@ -63,13 +68,6 @@ def sync_message_bits(trig: torch.Tensor, deg: torch.Tensor,
     return torch.sum(msg * deg)
 
 
-def refuse_faults(faults: Any) -> None:
-    """Fault injection is not ported: any plan raises."""
-    if faults is not None:
-        raise NotImplementedError(
-            "faults= is not ported yet (ROADMAP.md A.8: core/faults.py)")
-
-
 @dataclasses.dataclass(frozen=True)
 class SparqConfig:
     topology: Optional[Topology] = None    # static graph (shorthand for a
@@ -81,8 +79,11 @@ class SparqConfig:
     gamma: Optional[float] = None   # None -> gamma* from Lemma 6
     momentum: float = 0.0           # shorthand for optimizer=momentum(beta)
     optimizer: Optional[Optimizer] = None  # local-update rule; None -> sgd()
-    plan: Optional[GossipPlan] = None      # static plans only
-    faults: Any = None                     # not ported: must stay None
+    plan: Optional[GossipPlan] = None      # time-varying gossip plan; wins
+                                           # over (and excludes) topology=
+    faults: Optional[FaultPlan] = None     # link-drop / straggler / dropout
+                                           # injection; None or a null plan
+                                           # is fault-free
 
     def resolved_plan(self) -> GossipPlan:
         """``plan=`` verbatim, or the static single-round plan of
@@ -176,39 +177,55 @@ def make_step(cfg: SparqConfig, grad_fn: GradFn
               ) -> Callable[[SparqState, torch.Tensor], SparqState]:
     """step(state, key) -> state: Algorithm 1, or SQuARM-SGD when the
     config's optimizer carries momentum (``sparq.py:170``)."""
-    refuse_faults(cfg.faults)
     plan = cfg.resolved_plan()
-    if plan.R != 1:
-        raise NotImplementedError(
-            "time-varying gossip plans (R > 1) are not ported yet "
-            "(ROADMAP.md A.2)")
     n = plan.n
     comp = cfg.compressor
     opt = cfg.resolved_optimizer()
     H = int(cfg.H)
-    consts = {}
+    flt = resolve_faults(cfg.faults)
+    if flt is not None:
+        flt.validate_for(n)
+    # the plan's float32 support, (R, n, n), and per-round degrees, (R, n)
+    ws = torch.as_tensor(plan.ws, dtype=torch.float32)
+    degs = torch.as_tensor(plan.degrees, dtype=torch.float32)
+    consts, gammas = {}, {}
 
     def on(dev: torch.device):
         if dev not in consts:
-            consts[dev] = (
-                torch.as_tensor(plan.ws[0], dtype=torch.float32, device=dev),
-                torch.as_tensor(plan.degrees[0], dtype=torch.float32,
-                                device=dev))
+            consts[dev] = (ws.to(dev), degs.to(dev))
         return consts[dev]
 
     def step(state: SparqState, key: torch.Tensor) -> SparqState:
         d = state.x.shape[-1]
-        gamma = cfg.resolved_gamma(d)
+        dev = state.x.device
+        if d not in gammas:
+            gammas[d] = cfg.resolved_gamma(d)
+        gamma = gammas[d]
         kg, kc = prng.split(key)
         g = grad_fn(state.x, state.t, kg)
         eta = cfg.lr(state.t)
         x_half, opt_new = local_update(opt, g, state.opt, state.x, eta)
+        if flt is not None:
+            # stragglers and offline nodes skip this local step: iterate and
+            # optimizer state freeze
+            act = flt.step_mask(state.t, n).to(dev)
+            x_half = torch.where(act[:, None], x_half, state.x)
+            opt_new = flt.gate_update(act, opt_new, state.opt)
         if (state.t + 1) % H != 0:
             return state._replace(x=x_half, opt=opt_new, t=state.t + 1)
-        W, deg = on(state.x.device)
+        r = state.sync_rounds % plan.R
         diff = x_half - state.x_hat                           # (n, d)
         sq = torch.sum(diff * diff, dim=-1)                   # (n,)
         trig = trigger_mask(sq, cfg.threshold(state.t), eta)  # (n,) bool
+        if flt is None:
+            W_all, deg_all = on(dev)
+            W, deg = W_all[r], deg_all[r]
+        else:
+            # the round's matrix repaired over the surviving links, offline
+            # nodes muted, bits charged on live links only
+            W, deg, live = flt.apply(ws[r], state.t, state.sync_rounds)
+            W, deg = W.to(dev), deg.to(dev)
+            trig = trig & live.to(dev)
         if isinstance(comp, BlockTopFrac):
             # one kernel launch over the whole (n, d) ensemble
             q = kernel_ops.sign_topk_ensemble(diff, comp._k_b())

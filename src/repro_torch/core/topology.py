@@ -11,13 +11,17 @@ consensus stepsize gamma* of Lemma 6:
     beta   = max_i (1 - lambda_i(W)) = ||W - I||_2.
 
 Graphs: ring, 2-D torus, complete, and random regular expanders; weights:
-uniform (1/(deg_max+1)) or Metropolis-Hastings. Static plans only: the
-time-varying plans (matchings, edge-sampled, cycle) are not ported yet.
+uniform (1/(deg_max+1)) or Metropolis-Hastings. Time-varying plans
+(:class:`GossipPlan`: random perfect matchings, edge-sampled subgraphs of a
+base graph, a round-robin cycle over a graph list) need each round's W_r
+symmetric doubly stochastic and the sequence connected on average:
+``delta_eff`` is the gap of the round-averaged matrix and gamma* the worst
+case over the support.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -184,8 +188,11 @@ class Topology:
         holds: the one degree both engines charge bits with."""
         return (self.w > 0).sum(1) - (np.diagonal(self.w) > 0)
 
-    def validate(self, atol: float = 1e-10) -> None:
-        """Raise ``ValueError`` on an invalid or disconnected mixing matrix."""
+    def validate(self, atol: float = 1e-10, *,
+                 require_connected: bool = True) -> None:
+        """Raise ``ValueError`` on an invalid mixing matrix, or a
+        disconnected one unless ``require_connected=False`` (a single round
+        of a time-varying plan, e.g. one matching)."""
         w, name = self.w, self.name
         if not np.allclose(w, w.T, atol=atol):
             raise ValueError(
@@ -199,7 +206,7 @@ class Topology:
             raise ValueError(
                 f"mixing matrix {name!r} has negative weights (min "
                 f"{w.min():.3e})")
-        if not self.delta > 0:
+        if require_connected and not self.delta > 0:
             raise ValueError(
                 f"graph {name!r} is disconnected (spectral gap delta = "
                 f"{self.delta:.3e} <= 0)")
@@ -243,9 +250,10 @@ def circulant_row(w: np.ndarray, atol: float = 1e-12) -> Optional[np.ndarray]:
 @dataclasses.dataclass(frozen=True)
 class GossipPlan:
     """A sequence of mixing matrices, one per sync round: round ``r``
-    gossips over ``ws[r % R]``. The port builds static plans only (R = 1);
-    the spectral quantities follow the reference (``delta_eff`` of the
-    round average, gamma* worst case over the support)."""
+    gossips over ``ws[r % R]``; ``R == 1`` is a static plan. ``delta_eff``
+    is the spectral gap of the round average (one matching alone is
+    disconnected; the sequence mixes) and ``gamma_star`` the Lemma-6 value
+    at ``(delta_eff, beta_r)``, minimized over the rounds."""
 
     ws: np.ndarray           # (R, n, n)
     name: str = "static"
@@ -263,12 +271,76 @@ class GossipPlan:
         """Static plan: the same mixing matrix every sync round."""
         return cls(ws=topology.w[None], name=topology.name)
 
+    @classmethod
+    def cycle(cls, topologies: Sequence[Topology]) -> "GossipPlan":
+        """Round-robin over an explicit graph list."""
+        tops = list(topologies)
+        if not tops:
+            raise ValueError("GossipPlan.cycle needs at least one topology")
+        sizes = {t.n for t in tops}
+        if len(sizes) != 1:
+            raise ValueError(
+                f"GossipPlan.cycle topologies disagree on node count: "
+                f"{sorted(sizes)}")
+        plan = cls(ws=np.stack([t.w for t in tops]),
+                   name="cycle(" + ",".join(t.name for t in tops) + ")")
+        plan.validate()
+        return plan
+
+    @classmethod
+    def matchings(cls, n: int, rounds: int = 8, seed: int = 0) -> "GossipPlan":
+        """Random perfect matchings: each round pairs the ``n`` nodes (n
+        even) at random and matched pairs average with weight 1/2."""
+        if n < 2 or n % 2:
+            raise ValueError(
+                f"random perfect matchings need an even node count >= 2, "
+                f"got n={n}")
+        if rounds < 1:
+            raise ValueError(f"need rounds >= 1, got {rounds}")
+        rng = np.random.default_rng(seed)
+        ws = []
+        for _ in range(rounds):
+            w = np.eye(n)
+            for i, j in matching_pairs(rng.permutation(n)):
+                w[i, i] = w[j, j] = 0.5
+                w[i, j] = w[j, i] = 0.5
+            ws.append(w)
+        plan = cls(ws=np.stack(ws), name=f"matchings(R={rounds})")
+        plan.validate()
+        return plan
+
+    @classmethod
+    def edge_sampled(cls, base: Topology, rounds: int = 8, p: float = 0.5,
+                     seed: int = 0, mixing: str = "uniform") -> "GossipPlan":
+        """Per-round random subgraphs of ``base``: each edge is kept with
+        probability ``p`` each round and the sampled adjacency gets fresh
+        ``mixing`` weights; a node isolated in a round keeps its iterate."""
+        if not 0.0 < p <= 1.0:
+            raise ValueError(f"edge keep-probability must be in (0, 1], "
+                             f"got {p}")
+        if rounds < 1:
+            raise ValueError(f"need rounds >= 1, got {rounds}")
+        n = base.n
+        adj = (base.w > 0).astype(np.float64)
+        np.fill_diagonal(adj, 0.0)
+        mix = uniform_mixing if mixing == "uniform" else metropolis_mixing
+        rng = np.random.default_rng(seed)
+        ws = []
+        for _ in range(rounds):
+            keep = np.triu(rng.random((n, n)) < p, k=1)
+            ws.append(mix(adj * (keep | keep.T)))
+        plan = cls(ws=np.stack(ws),
+                   name=f"edges({base.name},p={p},R={rounds})")
+        plan.validate()
+        return plan
+
     @property
     def n(self) -> int:
         return self.ws.shape[1]
 
     @property
     def R(self) -> int:
+        """Support size: round r uses ws[r % R]."""
         return self.ws.shape[0]
 
     def round_topology(self, r: int) -> Topology:
@@ -294,15 +366,39 @@ class GossipPlan:
         return min(_lemma6_gamma(d, self.round_topology(r).beta, omega)
                    for r in range(self.R))
 
+    def validate(self, atol: float = 1e-10) -> None:
+        """Every round symmetric doubly stochastic; connected on average."""
+        for r in range(self.R):
+            self.round_topology(r).validate(atol=atol,
+                                            require_connected=False)
+        if not self.delta_eff > 0:
+            raise ValueError(
+                f"gossip plan {self.name!r} is disconnected in expectation "
+                f"(delta_eff = {self.delta_eff:.3e} <= 0): the round-averaged "
+                f"graph must be connected for consensus to form")
+
 
 def make_plan(kind: str = "ring", n: int = 8, *, deg: int = 4, seed: int = 0,
-              mixing: str = "uniform", dynamic: str = "none") -> GossipPlan:
-    """The static plan of ``make_topology(kind, n, ...)``. Time-varying
-    plans (``dynamic`` = matchings | edges | cycle) are not ported yet
-    (ROADMAP.md, "Dynamic plans")."""
-    if dynamic not in ("none", "static", ""):
-        raise NotImplementedError(
-            f"dynamic gossip plan {dynamic!r} is not ported yet (ROADMAP.md "
-            f"A.2, dynamic plans: matchings, edges, cycle)")
-    return GossipPlan.from_topology(
-        make_topology(kind, n, deg=deg, seed=seed, mixing=mixing))
+              mixing: str = "uniform", dynamic: str = "none", rounds: int = 8,
+              edge_frac: float = 0.5) -> GossipPlan:
+    """Every static or time-varying plan. ``dynamic``: ``"none"`` the
+    static ``make_topology(kind, n, ...)``; ``"matchings"`` random perfect
+    matchings (``kind`` ignored); ``"edges"`` edge-sampled subgraphs of the
+    ``kind`` graph, each edge kept w.p. ``edge_frac``; ``"cycle"`` a
+    round-robin over ``rounds`` graphs of ``kind`` built with seeds
+    ``seed .. seed+rounds-1``."""
+    if dynamic in ("none", "static", ""):
+        return GossipPlan.from_topology(
+            make_topology(kind, n, deg=deg, seed=seed, mixing=mixing))
+    if dynamic == "matchings":
+        return GossipPlan.matchings(n, rounds=rounds, seed=seed)
+    if dynamic == "edges":
+        base = make_topology(kind, n, deg=deg, seed=seed, mixing=mixing)
+        return GossipPlan.edge_sampled(base, rounds=rounds, p=edge_frac,
+                                       seed=seed, mixing=mixing)
+    if dynamic == "cycle":
+        return GossipPlan.cycle(
+            [make_topology(kind, n, deg=deg, seed=seed + r, mixing=mixing)
+             for r in range(rounds)])
+    raise ValueError(
+        f"unknown dynamic plan {dynamic!r}; have none|matchings|edges|cycle")

@@ -10,15 +10,30 @@ selection and the bits, are the reference's. Per sync index (every H steps):
 
     x^{t+1/2} = x^t - eta_t (m^t or g^t)                       (local step)
     trig_i    = [ ||x_i^{t+1/2} - x_hat_i||^2 > c_t eta_t^2 ]  (row norms)
-    q_i       = trig_i * BlockSignTopK(x_i^{t+1/2} - x_hat_i)  (one launch)
+    q_i       = trig_i * C(x_i^{t+1/2} - x_hat_i)              (flat rows)
     x_hat'    = x_hat + q                                      (line 13)
-    x^{t+1}   = x^{t+1/2} + gamma (W x_hat' - x_hat')          (line 15)
+    x^{t+1}   = x^{t+1/2} + gamma (W_r x_hat' - x_hat')        (line 15)
+
+``C`` is, with ``use_kernel=True``, the blockwise SignTopK kernel in one
+launch over the whole buffer; otherwise the registry operator (``TopFrac``
+by default, or ``compressor=``) over each node's true D columns, one row at
+a time, with the reference's keys ``split(fold_in(fold_in(PRNGKey(seed),
+COMPRESS_STREAM), t), n)``; its result overwrites ``diff`` in place.
+
+``W_r`` is round ``sync_rounds % R`` of the gossip plan; a static
+circulant plan (ring, complete, ...) with no faults mixes by row rolls,
+anything else by the dense product, column chunk by column chunk. A fault
+plan (:mod:`repro_torch.core.faults`) freezes the rows of skipped nodes in
+the iterate and the optimizer state (the old rows are kept across the
+in-place update and put back), repairs ``W_r`` over the surviving links,
+mutes offline nodes and charges live links only. Every node's forward and
+backward still run: the reported loss is the mean over all n nodes.
 
 The whole node ensemble lives on the one device. Memory is the design
 constraint: at Qwen1.5-0.5B width each ``(4, D_pad)`` float32 buffer is
 9.9 GB, so at most five are live (params, x_hat, grads, the kernel's q, and
 the optimizer's momentum when there is one) and everything else is done in
-place or in column chunks:
+place, in column chunks or one row at a time:
 
 * gradients are written straight into the grads buffer: each node's leaves
   are detached views of its params row whose ``.grad`` is the matching view
@@ -29,24 +44,27 @@ place or in column chunks:
   (every expression is elementwise per column, so chunking keeps the
   reference's float32 expressions);
 * the kernel runs in its ensemble mode on ``diff`` viewed as tiles: no zero
-  x_hat and no x_hat_new are allocated.
+  x_hat and no x_hat_new are allocated;
+* the generic operator's temporaries are one row's, and its q overwrites
+  ``diff``: no q buffer;
+* under faults, only the skipped nodes' rows are copied across the update.
 
 Train state is a dict of tensors updated in place; ``train_step`` returns
-the same dict. Not ported yet, each raising when asked for: fault injection,
-time-varying plans, and the generic ``compressor=`` / global ``TopFrac``
-path without the kernel (ROADMAP.md).
+the same dict.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import (Any, Callable, Dict, Iterator, Mapping, Optional, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple, Union)
 
 import torch
 
 from repro_torch.core import bits as bits_mod
-from repro_torch.core.compression import BlockTopFrac, Compressor
+from repro_torch.core import prng
+from repro_torch.core.compression import BlockTopFrac, Compressor, TopFrac
+from repro_torch.core.faults import COMPRESS_STREAM, FaultPlan, resolve_faults
 from repro_torch.core.schedule import LRSchedule, decaying, is_sync
 from repro_torch.core.sparq import gossip_mix, sync_message_bits, trigger_mask
 from repro_torch.core.topology import (GossipPlan, Topology, circulant_row,
@@ -67,12 +85,11 @@ COLUMN_CHUNK = 1 << 22   # columns per chunk of the sync's elementwise passes
 
 @dataclasses.dataclass(frozen=True)
 class DistSparqConfig:
-    """Runtime knobs of the flat-buffer engine (the reference's fields; the
-    ones whose features wait raise in ``build_sparq``)."""
+    """Runtime knobs of the flat-buffer engine (the reference's fields)."""
 
     H: int = 1                       # gap(I_T): sync every H steps
     variant: str = "dense"           # dense | shift (alias ring): mixing impl
-    frac: float = 1.0                # SignTopK fraction per 1024-tile
+    frac: float = 1.0                # SignTopK fraction (per tile or global)
     use_kernel: bool = False         # the fused blockwise kernel path
     threshold: ThresholdSchedule = zero()
     lr: LRSchedule = decaying(0.5, 10.0)
@@ -86,28 +103,33 @@ class DistSparqConfig:
                                                   # or None -> "ring"
     deg: int = 4                     # expander degree (kind strings only)
     mixing: str = "uniform"          # uniform | metropolis (kind strings)
-    dynamic: str = "none"            # time-varying plans: not ported yet
-    topo_seed: int = 0               # graph sampling seed
-    plan: Optional[GossipPlan] = None  # full override (static plans only)
-    compressor: Optional[Compressor] = None  # generic path: not ported yet
-    faults: Optional[Any] = None     # fault injection: not ported yet
+    dynamic: str = "none"            # none | matchings | edges | cycle
+    rounds: int = 8                  # dynamic support size R
+    edge_frac: float = 0.5           # edge keep-probability (dynamic=edges)
+    topo_seed: int = 0               # graph / plan sampling seed
+    plan: Optional[GossipPlan] = None  # full override (its n must match)
+    compressor: Optional[Compressor] = None  # flat-vector operator; None ->
+                                             # TopFrac(frac)
+    seed: int = 0                    # PRNG seed of stochastic compressors
+    faults: Optional[FaultPlan] = None  # link-drop / straggler / dropout
 
     def resolved_optimizer(self) -> Optimizer:
         return resolve_optimizer(self.optimizer, self.momentum,
                                  nesterov=self.nesterov)
 
     def resolved_plan(self, n: int) -> GossipPlan:
-        """The static communication plan at ensemble size ``n``."""
+        """The communication plan at ensemble size ``n``: ``plan=``, an
+        explicit Topology as a static plan, or a kind string built here."""
         if self.plan is not None:
             if self.plan.n != n:
                 raise ValueError(f"plan {self.plan.name!r} has n="
                                  f"{self.plan.n} but the ensemble has {n}")
-            if self.plan.R != 1:
-                raise NotImplementedError(
-                    "time-varying gossip plans are not ported yet "
-                    "(ROADMAP.md, dynamic plans)")
             return self.plan
         if isinstance(self.topology, Topology):
+            if self.dynamic not in ("none", "static", ""):
+                raise ValueError(
+                    f"dynamic={self.dynamic!r} with an explicit Topology is "
+                    f"ambiguous: pass plan= or a kind string instead")
             if self.topology.n != n:
                 raise ValueError(
                     f"topology {self.topology.name!r} has n="
@@ -115,22 +137,42 @@ class DistSparqConfig:
             return GossipPlan.from_topology(self.topology)
         return make_plan(self.topology or "ring", n, deg=self.deg,
                          seed=self.topo_seed, mixing=self.mixing,
-                         dynamic=self.dynamic)
+                         dynamic=self.dynamic, rounds=self.rounds,
+                         edge_frac=self.edge_frac)
 
-    def effective_compressor(self) -> BlockTopFrac:
-        """The operator the sync path applies: the blockwise kernel's."""
-        if self.compressor is not None or not self.use_kernel:
-            raise NotImplementedError(
-                "only use_kernel=True (the blockwise SignTopK kernel) is "
-                "ported; the generic compressor= / global TopFrac path is "
-                "not yet (ROADMAP.md, compressors and the generic flat-buffer "
-                "path)")
-        return BlockTopFrac(frac=self.frac)
+    def resolved_compressor(self) -> Compressor:
+        if self.compressor is not None:
+            if self.use_kernel:
+                raise ValueError(
+                    "use_kernel=True hard-wires the fused blockwise SignTopK "
+                    "operator; a custom compressor= cannot ride it")
+            return self.compressor
+        return TopFrac(frac=self.frac)
 
-    def resolved_gamma(self, plan: GossipPlan, d: int) -> float:
+    def effective_compressor(self) -> Compressor:
+        """The operator the sync applies: the blockwise kernel's under
+        ``use_kernel=True``, else ``resolved_compressor()``. The payload
+        bits and gamma* derive from it."""
+        if self.use_kernel:
+            return BlockTopFrac(frac=self.frac)
+        return self.resolved_compressor()
+
+    def resolved_gamma(self, plan: Union[GossipPlan, Topology],
+                       d: Optional[int] = None) -> float:
         if self.gamma is not None:
             return float(self.gamma)
-        om = self.effective_compressor().omega(d)
+        comp = self.effective_compressor()
+        if d:
+            om = comp.omega(d)
+        elif self.compressor is None and not self.use_kernel:
+            om = min(self.frac, 2.0 / math.pi)   # TopFrac's d -> inf limit
+        elif self.use_kernel:
+            om = comp.omega(BLOCK)               # per tile
+        else:
+            raise ValueError(
+                "resolved_gamma() needs the model dimension d when gamma is "
+                "None and a custom compressor= is set: its contraction "
+                "omega(d) is dimension-dependent")
         return float(plan.gamma_star(max(om, 1e-3)))
 
 
@@ -174,14 +216,16 @@ def _column_chunks(width: int) -> Iterator[slice]:
 
 def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
                 device: Union[str, torch.device, None] = "cuda",
-                on_sync: Optional[Callable[[torch.Tensor], None]] = None
+                on_sync: Optional[Callable[[torch.Tensor, Dict[str, Any]],
+                                           None]] = None
                 ) -> Tuple[Callable[..., State], Callable, Dict[str, Any]]:
     """Build the flat-buffer engine for one model on one device.
 
     Returns ``(init_fn, train_step, pshape)``:
 
     * ``init_fn(seed=0, params=None) -> state``: identical x^0 on every
-      node (random weights from ``seed``, or the given parameter tree, e.g.
+      node (random weights from ``seed``, the same on every device, or the
+      given parameter tree, e.g.
       ``params_from_jax``), x_hat = 0;
     * ``train_step(state, batch) -> (state, metrics)``: one Algorithm 1
       step, updating ``state`` in place; ``batch`` holds ``(n, per_node,
@@ -189,38 +233,47 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     * ``pshape``: the single-node parameter tree as nested dicts of shapes.
 
     The ensemble size is ``n = cfg.n_nodes``. ``on_sync``, when given, is
-    called with the ``(n, D_pad)`` float32 ``diff`` at every sync before it
-    is compressed (for inspection; it must not modify it).
+    called at every sync before compression with the ``(n, D_pad)`` float32
+    ``diff`` (it must not modify it) and a dict of the sync's ``t``,
+    ``sync_round``, mixing matrix ``W`` and degrees ``deg`` (repaired under
+    faults), ``live`` (None without faults) and the gated triggers ``trig``.
     """
     dev = resolve_device(device)
-    if dcfg.faults is not None:
-        raise NotImplementedError(
-            "fault injection is not ported yet (ROADMAP.md, faults and "
-            "baselines)")
     n = int(cfg.n_nodes)
     plan = dcfg.resolved_plan(n)
-    comp = dcfg.effective_compressor()
+    R = plan.R
+    comp = dcfg.resolved_compressor()
+    comp_eff = dcfg.effective_compressor()
     opt = dcfg.resolved_optimizer()
     H, mbs = int(dcfg.H), int(dcfg.microbatches)
     xhat_dt = dtype_of(dcfg.xhat_dtype)
-    k_b = comp._k_b()
+    k_b = (comp_eff._k_b() if isinstance(comp_eff, BlockTopFrac)
+           else max(1, min(BLOCK, int(math.ceil(dcfg.frac * BLOCK)))))
     if dcfg.variant not in ("dense", "ring", "shift"):
         raise ValueError(f"unknown variant {dcfg.variant!r}")
-    # a static circulant W (ring, complete, ...) turns W x - x into a few row
-    # rolls; anything else, or n <= 2, mixes with the dense product
+    flt = resolve_faults(dcfg.faults)
+    if flt is not None:
+        flt.validate_for(n)
+    # a static circulant W (ring, complete, ...) with no faults turns
+    # W x - x into a few row rolls; anything else mixes with the dense
+    # product (a repaired or time-varying W is not circulant)
     shift_row = (circulant_row(plan.ws[0])
-                 if dcfg.variant in ("ring", "shift") and n > 2 else None)
+                 if dcfg.variant in ("ring", "shift") and R == 1 and n > 2
+                 and flt is None else None)
     shift_terms = ([(s, float(shift_row[s])) for s in range(1, n)
                     if shift_row[s] > 0.0]
                    if shift_row is not None else None)
-    W = torch.tensor(plan.ws[0], dtype=torch.float32, device=dev)
-    deg = torch.tensor(plan.degrees[0], dtype=torch.float32, device=dev)
+    ws = torch.tensor(plan.ws, dtype=torch.float32)          # (R, n, n) host
+    ws_dev = ws.to(dev)
+    degs_dev = torch.tensor(plan.degrees, dtype=torch.float32, device=dev)
+    # the stochastic compressor's stream, tagged apart from the fault streams
+    base_key = prng.fold_in(prng.PRNGKey(dcfg.seed), COMPRESS_STREAM)
 
     pshape = param_shapes(cfg)
     slices, D = _flatten_spec(pshape)
     D_pad = max(1, -(-D // BLOCK)) * BLOCK
     gamma = dcfg.resolved_gamma(plan, D)
-    payload = float(comp.bits(D))
+    payload = float(comp_eff.bits(D))
 
     def unravel(flat: torch.Tensor) -> Dict[str, Any]:
         """One node row (D_pad,) or (D,) -> model tree of views."""
@@ -237,7 +290,9 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     def init_fn(seed: int = 0, params: Optional[Mapping[str, Any]] = None
                 ) -> State:
         if params is None:
-            gen = torch.Generator(device=dev)
+            # drawn on the host, so a seed gives the same weights on every
+            # device (a run on the CPU reproduces the card's)
+            gen = torch.Generator()
             gen.manual_seed(seed)
             params = init_params(cfg, gen)
         flat = torch.zeros((n, D_pad), dtype=torch.float32, device=dev)
@@ -288,38 +343,89 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
             grads.div_(mbs)
         return losses
 
-    def mix_term(x: torch.Tensor) -> torch.Tensor:
-        """Consensus term (W x - x) of an (n, chunk) float32 block."""
+    def mix_term(x: torch.Tensor, W_r: torch.Tensor) -> torch.Tensor:
+        """Consensus term (W_r x - x) of an (n, chunk) float32 block."""
         if shift_terms is not None:
             # (W x)_i = sum_s c_s x_{(i+s) mod n}
             acc = (float(shift_row[0]) - 1.0) * x
             for s, c_s in shift_terms:
                 acc = acc + c_s * torch.roll(x, -s, dims=0)
             return acc
-        return gossip_mix(W, x)
+        return gossip_mix(W_r, x)
+
+    def node_rows(opt_state: Any) -> List[torch.Tensor]:
+        """The optimizer state's node-stacked tensors (a shared step count
+        is not one)."""
+        if isinstance(opt_state, torch.Tensor):
+            return [opt_state] if opt_state.dim() and \
+                opt_state.shape[0] == n else []
+        if isinstance(opt_state, tuple):
+            return [r for v in opt_state for r in node_rows(v)]
+        return []
+
+    def local_step(state: State, grads: torch.Tensor, eta: torch.Tensor
+                   ) -> None:
+        """x^{t+1/2} and the optimizer state, in place; nodes that skip the
+        step (stragglers, offline) keep their rows exactly."""
+        params = state["params"]
+        frozen = []
+        if flt is not None:
+            act = flt.step_mask(state["t"], n)
+            frozen = [i for i in range(n) if not act[i]]
+        kept = [[buf[i].clone() for buf in [params] + node_rows(state["opt"])]
+                for i in frozen]
+        state["opt"] = opt.update(grads, state["opt"], params, float(eta))
+        for i, rows in zip(frozen, kept, strict=True):
+            for buf, row in zip([params] + node_rows(state["opt"]), rows,
+                                strict=True):
+                buf[i].copy_(row)
+
+    def compress(diff: torch.Tensor, t: int) -> torch.Tensor:
+        """q for every row of ``diff`` (untriggered rows are gated later)."""
+        if dcfg.use_kernel:
+            # one launch over the whole buffer
+            return kernel_ops.sign_topk_ensemble(diff, k_b)   # (n, D_pad)
+        # the registry operator over each row's true D columns, one row at
+        # a time (its temporaries are row-sized), written over diff
+        keys = prng.split(prng.fold_in(base_key, t), n)
+        for i in range(n):
+            diff[i, :D] = comp(diff[i, :D], keys[i])
+        return diff
 
     def sync(state: State, diff: torch.Tensor, eta: torch.Tensor) -> None:
         params, x_hat = state["params"], state["x_hat"]
-        c_t = dcfg.threshold(state["t"])
+        t, r = state["t"], state["sync_rounds"] % R
+        c_t = dcfg.threshold(t)
         sq = torch.zeros((n,), dtype=torch.float32, device=dev)
         for c in _column_chunks(D_pad):
             d = torch.sub(params[:, c], x_hat[:, c].to(torch.float32),
                           out=diff[:, c])
             sq += (d * d).sum(dim=1)
         trig = trigger_mask(sq, c_t, eta)
+        live = None
+        if flt is None:
+            W_r, deg_r = ws_dev[r], degs_dev[r]
+        else:
+            # the round's matrix repaired over the surviving links, offline
+            # nodes muted, bits charged on live links only
+            W_r, deg_r, live = flt.apply(ws[r], t, state["sync_rounds"])
+            W_r, deg_r = W_r.to(dev), deg_r.to(dev)
+            trig = trig & live.to(dev)
         trigf = trig.to(torch.float32)[:, None]
         if on_sync is not None:
-            on_sync(diff)
-        q = kernel_ops.sign_topk_ensemble(diff, k_b)        # (n, D_pad)
+            on_sync(diff, {"t": t, "sync_round": state["sync_rounds"],
+                           "W": W_r, "deg": deg_r, "live": live,
+                           "trig": trig})
+        q = compress(diff, t)
         for c in _column_chunks(D_pad):
             xe_new = (x_hat[:, c].to(torch.float32)
                       + q[:, c] * trigf).to(xhat_dt)          # lines 11, 13
             x_hat[:, c] = xe_new
-            params[:, c] += gamma * mix_term(xe_new.to(torch.float32))
+            params[:, c] += gamma * mix_term(xe_new.to(torch.float32), W_r)
         del q
         state["bits"], state["bits_c"] = bits_mod.acc_add(
             state["bits"], state["bits_c"],
-            sync_message_bits(trig, deg, payload))
+            sync_message_bits(trig, deg_r, payload))
         state["sync_rounds"] += 1
         state["triggers"] += trig.sum().to(torch.int32)
 
@@ -337,8 +443,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
         eta = dcfg.lr(state["t"])
         with torch.no_grad():
             # params becomes x^{t+1/2}; grads is left free for diff
-            state["opt"] = opt.update(grads, state["opt"], params,
-                                      float(eta))
+            local_step(state, grads, eta)
             if is_sync(state["t"], H):
                 sync(state, grads, eta)
         del grads
@@ -350,11 +455,12 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
         return state, metrics
 
     for fn in (init_fn, train_step):
-        fn.use_kernel = True
+        fn.use_kernel = bool(dcfg.use_kernel)
         fn.lowering = "cuda" if dev.type == "cuda" else "torch"
         fn.device = dev
         fn.n_nodes = n
         fn.plan = plan
+        fn.compressor = comp_eff
         fn.k_b = k_b
         fn.payload_bits = payload
         fn.d_model_total = int(D)

@@ -7,11 +7,14 @@ The whole ``--nodes`` ensemble lives on one device, ``cuda`` unless
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --nodes 4 --use-kernel --steps 6 --H 3
 
-Flags whose features are not ported yet raise with the reason: fault
-injection (``--link-drop``, ``--stragglers``, ``--dropout-window``),
-``--dynamic`` plans, checkpoints (``--ckpt-dir``, ``--resume``), ``--lint``,
-``--devices`` (the mesh factoring waits for the sharding slice), and any run
-without ``--use-kernel`` (the generic compressor path).
+``--use-kernel`` compresses with the blockwise SignTopK kernel; without it
+the run takes the generic path, a global SignTopK of ``--frac`` of each
+node's flat vector. ``--dynamic`` picks a time-varying gossip plan and
+``--link-drop``, ``--stragglers``/``--straggler-frac``, ``--dropout-window``
+and ``--fault-seed`` inject faults. Flags whose features are not ported yet
+raise with the reason: checkpoints (``--ckpt-dir``, ``--resume``),
+``--lint``, and ``--devices`` (the mesh factoring waits for the sharding
+slice).
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+
+from repro_torch.core.faults import DropoutWindow, FaultPlan
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -50,28 +55,33 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["uniform", "metropolis"])
     ap.add_argument("--dynamic", default="none",
                     choices=["none", "matchings", "edges", "cycle"],
-                    help="time-varying gossip plan (not ported yet)")
-    ap.add_argument("--dynamic-rounds", type=int, default=8)
-    ap.add_argument("--edge-frac", type=float, default=0.5)
+                    help="time-varying gossip plan family (none = static)")
+    ap.add_argument("--dynamic-rounds", type=int, default=8,
+                    help="support size R of a --dynamic plan")
+    ap.add_argument("--edge-frac", type=float, default=0.5,
+                    help="per-round edge keep-probability (--dynamic edges)")
     ap.add_argument("--topo-seed", type=int, default=0,
                     help="graph sampling seed")
     ap.add_argument("--link-drop", type=float, default=0.0,
-                    help="fault injection (not ported yet)")
+                    help="per-sync-round iid link-drop probability in [0, 1)")
     ap.add_argument("--stragglers", default="",
-                    help="fault injection (not ported yet)")
-    ap.add_argument("--straggler-frac", type=float, default=0.5)
-    ap.add_argument("--dropout-window", action="append", default=None,
+                    help="comma-separated node indices that straggle, e.g. "
+                         "'0,3'")
+    ap.add_argument("--straggler-frac", type=float, default=0.5,
+                    help="fraction of local steps each straggler skips")
+    ap.add_argument("--dropout-window", action="append", default=[],
                     metavar="NODE:START:END",
-                    help="fault injection (not ported yet)")
-    ap.add_argument("--fault-seed", type=int, default=0)
+                    help="take NODE offline for steps START <= t < END "
+                         "(repeatable)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="fault-stream PRNG seed (links and stragglers)")
     ap.add_argument("--momentum", type=float, default=0.0,
                     help="SQuARM-SGD momentum beta (0 = plain SPARQ)")
     ap.add_argument("--nesterov", action="store_true")
     ap.add_argument("--lr", type=float, default=0.5)
     ap.add_argument("--threshold", type=float, default=2.0)
     ap.add_argument("--use-kernel", action="store_true",
-                    help="the blockwise SignTopK CUDA kernel path (the only "
-                         "ported compression path)")
+                    help="the blockwise SignTopK CUDA kernel path")
     ap.add_argument("--lint", action="store_true",
                     help="static audit of the compiled step (not ported)")
     ap.add_argument("--log-every", type=int, default=5)
@@ -87,24 +97,39 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     waits = [
         (args.devices, "--devices: the mesh factoring waits for the "
                        "sharding slice; the ensemble runs on one device"),
-        (args.link_drop or args.stragglers or args.dropout_window,
-         "--link-drop/--stragglers/--dropout-window: fault injection is not "
-         "ported yet (ROADMAP.md, faults and baselines)"),
-        (args.dynamic != "none",
-         "--dynamic: time-varying gossip plans are not ported yet "
-         "(ROADMAP.md, dynamic plans)"),
-        (args.ckpt_dir or args.resume,
-         "--ckpt-dir/--resume: checkpointing is not ported yet (ROADMAP.md, "
-         "checkpoint/resume and the rest of the CLI)"),
+        (args.ckpt_dir or args.ckpt_every or args.resume,
+         "--ckpt-dir/--ckpt-every/--resume: checkpointing is not ported yet "
+         "(ROADMAP.md, checkpoint/resume and the rest of the CLI)"),
         (args.lint, "--lint: the static audit checks XLA programs and has no "
                     "counterpart in the port yet (ROADMAP.md, audits)"),
-        (not args.use_kernel,
-         "a run without --use-kernel needs the generic compressor path, "
-         "which is not ported yet (ROADMAP.md, compressors)"),
     ]
     for bad, why in waits:
         if bad:
             raise SystemExit(f"[train] not ported: {why}")
+
+
+def _fault_plan(args: argparse.Namespace) -> FaultPlan:
+    """The fault flags as a plan, validated as the reference validates
+    them (``repro/launch/train.py:142-163``)."""
+    try:
+        windows = tuple(
+            DropoutWindow(*(int(p) for p in spec.split(":")))
+            for spec in args.dropout_window)
+    except (TypeError, ValueError):
+        raise SystemExit(
+            f"[train] --dropout-window needs integer NODE:START:END with "
+            f"START < END, got {args.dropout_window!r}") from None
+    try:
+        straggler_ids = tuple(
+            int(i) for i in args.stragglers.split(",") if i)
+    except ValueError:
+        raise SystemExit(
+            f"[train] --stragglers needs comma-separated integer node "
+            f"indices, got {args.stragglers!r}") from None
+    return FaultPlan(
+        link_drop=args.link_drop, stragglers=straggler_ids,
+        straggler_frac=args.straggler_frac if args.stragglers else 0.0,
+        dropout=windows, seed=args.fault_seed)
 
 
 def run(argv: Optional[Sequence[str]] = None, on_sync=None) -> Dict[str, Any]:
@@ -115,6 +140,7 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None) -> Dict[str, Any]:
     ``build_sparq``."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    faults = _fault_plan(args)
 
     from repro_torch.configs.registry import get_config
     from repro_torch.core.schedule import decaying
@@ -139,7 +165,8 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None) -> Dict[str, Any]:
         threshold=constant(args.threshold), momentum=args.momentum,
         nesterov=args.nesterov, variant=args.variant,
         use_kernel=args.use_kernel, topology=args.topology, deg=args.deg,
-        mixing=args.mixing, topo_seed=args.topo_seed)
+        mixing=args.mixing, dynamic=args.dynamic, rounds=args.dynamic_rounds,
+        edge_frac=args.edge_frac, topo_seed=args.topo_seed, faults=faults)
     init_fn, train_step, pshape = build_sparq(cfg, dcfg, device=dev,
                                               on_sync=on_sync)
     plan = init_fn.plan
@@ -147,6 +174,13 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None) -> Dict[str, Any]:
           f"(~{init_fn.d_model_total / 1e6:.1f}M params/node)")
     print(f"[train] gossip plan {plan.name} (R={plan.R}) "
           f"delta_eff={plan.delta_eff:.4f}")
+    print(f"[train] compressor {train_step.compressor.name} "
+          f"(payload {train_step.payload_bits:.6e} bits per message)")
+    if not faults.is_null:
+        print(f"[train] faults: link_drop={faults.link_drop} "
+              f"stragglers={faults.stragglers}@{faults.straggler_frac} "
+              f"dropout={[(w.node, w.start, w.end) for w in faults.dropout]} "
+              f"seed={faults.seed}")
     state = init_fn(seed=0)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                          batch_per_node=args.batch_per_node,

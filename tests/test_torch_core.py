@@ -220,8 +220,15 @@ def test_topology_refusals_match_reference():
             mod.random_regular_adjacency(7, 3)
         with pytest.raises(ValueError):
             mod.Topology(w=np.array([[0.5, 0.6], [0.5, 0.4]])).validate()
-    with pytest.raises(NotImplementedError):
-        topology.make_plan("ring", 8, dynamic="matchings")
+        with pytest.raises(ValueError, match="dynamic"):
+            mod.make_plan("ring", 8, dynamic="nope")
+        with pytest.raises(ValueError, match="even"):
+            mod.GossipPlan.matchings(7)
+        with pytest.raises(ValueError, match="keep-probability"):
+            mod.GossipPlan.edge_sampled(mod.make_topology("ring", 8), p=0.0)
+        with pytest.raises(ValueError, match="node count"):
+            mod.GossipPlan.cycle([mod.make_topology("ring", 8),
+                                  mod.make_topology("ring", 6)])
 
 
 def test_sparq_primitives_equal_reference():

@@ -1,6 +1,8 @@
 """Port parity, the slice as a whole: the port's flat-buffer engine
-(``repro_torch.dist.sparq_dist.build_sparq(use_kernel=True)``) against the
-reference's on the same weights and batches, for 5 steps.
+(``repro_torch.dist.sparq_dist.build_sparq``) against the reference's on the
+same weights and batches, for 5 steps: the kernel path, the generic path
+(global TopFrac, and the stochastic QSGD with the reference's keys), fault
+injection and the time-varying plans.
 
 The selection is a discontinuous function of the iterate: where two entries
 of a tile lie closer than the packages' float32 rounding differences, each
@@ -16,6 +18,7 @@ within ``rtol = 1e-6`` (float32 sums of per-node messages in another order).
 The lr = 0 sync starts both from the same carried state, so both see the
 same diff and the selected supports must be equal exactly.
 """
+import collections
 import dataclasses
 import functools
 
@@ -28,7 +31,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.registry import get_config as jget  # noqa: E402
+from repro.core import compression as jcomp  # noqa: E402
+from repro.core import faults as jfaults  # noqa: E402
 from repro.core import schedule as jsched  # noqa: E402
+from repro.core import topology as jtopo  # noqa: E402
 from repro.core import triggers as jtrig  # noqa: E402
 from repro.dist import sharding as jsh  # noqa: E402
 from repro.dist.sparq_dist import DistSparqConfig as JDcfg  # noqa: E402
@@ -36,7 +42,11 @@ from repro.dist.sparq_dist import build_sparq as jbuild  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.configs.registry import get_config as tget  # noqa: E402
+from repro_torch.core import compression as tcomp  # noqa: E402
+from repro_torch.core import faults as tfaults  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import schedule as tsched  # noqa: E402
+from repro_torch.core import topology as ttopo  # noqa: E402
 from repro_torch.core import triggers as ttrig  # noqa: E402
 from repro_torch.dist.sparq_dist import DistSparqConfig, build_sparq  # noqa: E402
 from repro_torch.kernels.sign_topk import sign_topk_blocks  # noqa: E402
@@ -44,6 +54,15 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.transformer import params_from_jax  # noqa: E402
 
 N, T = 4, 5
+# a knob whose value is an object of each package: (reference's, port's)
+Pair = collections.namedtuple("Pair", "j t")
+
+
+@pytest.fixture(autouse=True)
+def same_stream():
+    """The port draws from the threefry stream JAX is set to."""
+    with prng.threefry_partitionable(jax.config.jax_threefry_partitionable):
+        yield
 
 
 @pytest.fixture
@@ -68,14 +87,19 @@ def _setup():
 
 def _engines(jc, tc, thr, H, beta, variant, lr=0.05, extra=None):
     """Both engines with the same knobs; schedules named by factory so each
-    package builds its own."""
-    common = dict(H=H, variant=variant, frac=0.25, use_kernel=True,
-                  gamma=0.3, momentum=beta, **(extra or {}))
+    package builds its own, and a ``Pair`` knob gives each its object."""
+    common = {**dict(H=H, variant=variant, frac=0.25, use_kernel=True,
+                     gamma=0.3, momentum=beta), **(extra or {})}
+
+    def side(which):
+        return {k: getattr(v, which) if isinstance(v, Pair) else v
+                for k, v in common.items()}
     mesh = jsh.train_mesh(jax.make_mesh((1, 1), ("data", "model")), jc)
     jinit, jstep, _, _ = jbuild(jc, mesh, JDcfg(
-        threshold=thr(jtrig), lr=jsched.fixed(lr), **common))
+        threshold=thr(jtrig), lr=jsched.fixed(lr), **side("j")))
     tinit, tstep, _ = build_sparq(tc, DistSparqConfig(
-        threshold=thr(ttrig), lr=tsched.fixed(lr), **common), device="cpu")
+        threshold=thr(ttrig), lr=tsched.fixed(lr), **side("t")),
+        device="cpu")
     return (jinit, jax.jit(jstep)), (tinit, tstep)
 
 
@@ -87,6 +111,15 @@ def _never(m):
     return m.constant(1e12)
 
 
+def _faults(mod):
+    """30 % link drop, node 1 straggling half its steps, node 2 offline
+    across the first sync (the reference's own fault case)."""
+    return mod.FaultPlan(link_drop=0.3, stragglers=(1,), straggler_frac=0.5,
+                         dropout=(mod.DropoutWindow(2, 1, 3),), seed=5)
+
+
+FAULTS = {"faults": Pair(_faults(jfaults), _faults(tfaults))}
+GENERIC = {"use_kernel": False}
 CASES = [("always-dense", _always, 2, 0.0, "dense", None),
          ("never-dense", _never, 3, 0.0, "dense", None),
          ("momentum-dense", _always, 2, 0.9, "dense", None),
@@ -96,7 +129,26 @@ CASES = [("always-dense", _always, 2, 0.0, "dense", None),
          ("nesterov-torus", _always, 2, 0.9, "dense",
           {"topology": "torus2d", "nesterov": True}),
          ("bf16-xhat-microbatches", _always, 2, 0.0, "ring",
-          {"xhat_dtype": "bfloat16", "microbatches": 2})]
+          {"xhat_dtype": "bfloat16", "microbatches": 2}),
+         # faults: the ring variant falls back to the dense product
+         ("faults-sgd-ring", _always, 2, 0.0, "ring", FAULTS),
+         ("faults-momentum-dense", _always, 2, 0.9, "dense", FAULTS),
+         # time-varying plans, one per family
+         ("matchings", _always, 2, 0.0, "ring",
+          {"dynamic": "matchings", "rounds": 3, "topo_seed": 2}),
+         ("edges", _always, 2, 0.0, "dense",
+          {"topology": "complete", "dynamic": "edges", "rounds": 3,
+           "edge_frac": 0.6, "topo_seed": 1}),
+         ("cycle", _always, 2, 0.0, "dense",
+          {"topology": "expander", "deg": 2, "dynamic": "cycle",
+           "rounds": 2, "topo_seed": 1}),
+         # the generic path: global TopFrac, and a stochastic operator
+         ("generic-topfrac", _always, 2, 0.0, "ring", GENERIC),
+         ("generic-qsgd", _always, 2, 0.0, "dense",
+          dict(GENERIC, compressor=Pair(jcomp.QSGD(s=16), tcomp.QSGD(s=16)),
+               seed=3)),
+         ("generic-faults-matchings", _always, 2, 0.9, "dense",
+          dict(GENERIC, dynamic="matchings", rounds=3, **FAULTS))]
 
 
 @pytest.mark.parametrize("name,thr,H,beta,variant,extra", CASES,
@@ -167,13 +219,26 @@ def test_sync_at_zero_lr_selects_the_reference_support(float32_scores):
 
 
 def test_unported_options_raise():
+    """What the engine still refuses, as the reference refuses it: an
+    unknown mixing variant, a custom compressor on the kernel path (which
+    hard-wires BlockTopFrac), a time-varying family on an explicit
+    Topology, and gamma* of a custom compressor without the dimension."""
     _, tc, _, _ = _setup()
     base = dict(use_kernel=True, frac=0.25)
-    for kw in (dict(faults=object()), dict(dynamic="matchings"),
-               dict(use_kernel=False), dict(compressor=object())):
-        with pytest.raises(NotImplementedError):
-            build_sparq(tc, DistSparqConfig(**dict(base, **kw)),
-                        device="cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="variant"):
         build_sparq(tc, DistSparqConfig(variant="nope", **base),
                     device="cpu")
+    with pytest.raises(ValueError, match="compressor"):
+        build_sparq(tc, DistSparqConfig(compressor=tcomp.QSGD(), **base),
+                    device="cpu")
+    ring = ttopo.make_topology("ring", N)
+    with pytest.raises(ValueError, match="ambiguous"):
+        build_sparq(tc, DistSparqConfig(topology=ring, dynamic="matchings",
+                                        **base), device="cpu")
+    for cfg, comp, topo in ((DistSparqConfig, tcomp, ttopo),
+                            (JDcfg, jcomp, jtopo)):
+        with pytest.raises(ValueError, match="compressor"):
+            cfg(compressor=comp.QSGD(), **base).resolved_compressor()
+        with pytest.raises(ValueError, match="dimension"):
+            cfg(compressor=comp.QSGD()).resolved_gamma(
+                topo.make_topology("ring", N))

@@ -5,7 +5,8 @@ and the same ``jax.random`` keys (the port's ``prng`` draws the same
 minibatches and noise).
 
 Tolerances:
-* the committed golden traces (``tests/golden/{sparq,squarm}.json``, drawn
+* the committed golden traces (``tests/golden/{sparq,squarm,choco,
+  sparq_faults}.json``, drawn
   from JAX's original threefry stream, so the port draws from it too): the
   golden test's own, integer channels exact, bits rtol 1e-9, losses and the
   final fingerprint rtol 2e-4;
@@ -32,12 +33,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import baselines as jbase  # noqa: E402
 from repro.core import compression as jcomp  # noqa: E402
+from repro.core import faults as jfaults  # noqa: E402
 from repro.core import schedule as jsched  # noqa: E402
 from repro.core import sparq as jsparq  # noqa: E402
 from repro.core import topology as jtopo  # noqa: E402
 from repro.core import triggers as jtrig  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
 from repro_torch.core import baselines, compression, engine, prng  # noqa: E402
+from repro_torch.core import faults as tfaults  # noqa: E402
 from repro_torch.core import schedule, sparq, topology, triggers  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels.sign_topk import sign_topk_blocks  # noqa: E402
@@ -141,14 +144,25 @@ def _golden_config(name):
     if name == "sparq":
         return sparq.SparqConfig(topology=topo, compressor=comp,
                                  threshold=thr, lr=lr, H=5, gamma=0.3)
+    if name == "choco":
+        return baselines.choco_config(topo, comp, lr, gamma=0.3)
+    if name == "sparq_faults":
+        return sparq.SparqConfig(
+            topology=topo, compressor=comp, threshold=thr, lr=lr, H=5,
+            gamma=0.3, faults=tfaults.FaultPlan(
+                link_drop=0.3, stragglers=(1,), straggler_frac=0.5,
+                dropout=(tfaults.DropoutWindow(2, 10, 25),), seed=4))
     return sparq.squarm_config(topo, comp, lr, H=5, threshold=thr, beta=0.9,
                                nesterov=True, gamma=0.3)
 
 
-@pytest.mark.parametrize("case", ["sparq", "squarm"])
+@pytest.mark.parametrize("case", ["sparq", "squarm", "choco",
+                                  "sparq_faults"])
 def test_port_reproduces_golden_trace(case):
     """The golden harness of tests/test_golden_traces.py (n=6, d=64, T=60,
-    record every 10) run by the port, at the golden tolerances."""
+    record every 10) run by the port, at the golden tolerances; the fault
+    case draws its link, straggler and dropout masks from the port's own
+    FaultPlan."""
     with open(os.path.join(GOLDEN_DIR, f"{case}.json")) as f:
         want = json.load(f)
     _, _, tgrad, teval = _problem()
@@ -374,16 +388,23 @@ def test_step_leaves_its_input_state_alone(problem):
 
 
 def test_unported_options_raise():
-    topo = topology.make_topology("ring", 4)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        sparq.make_step(sparq.SparqConfig(topology=topo, faults=object()),
-                        lambda x, t, k: x)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        baselines.choco_config(topo, compression.Sign(),
-                               schedule.fixed(0.1), faults=object())
-    with pytest.raises(NotImplementedError, match="A.8"):
-        baselines.make_vanilla_step(topo, schedule.fixed(0.1),
-                                    lambda x, t, k: x, faults=object())
+    """What the reference engine still refuses: ``omega_certificate`` is not
+    ported; a config with both ``topology=`` and ``plan=``, gamma* without
+    the dimension, and a fault plan naming a node outside the ensemble raise
+    as the reference's do."""
+    with pytest.raises(NotImplementedError, match="A.5"):
+        compression.omega_certificate(compression.Sign(), 64)
+    for sp, tp, fl in ((sparq, topology, tfaults), (jsparq, jtopo, jfaults)):
+        ring = tp.make_topology("ring", 4)
+        with pytest.raises(ValueError, match="not both"):
+            sp.SparqConfig(topology=ring,
+                           plan=tp.GossipPlan.from_topology(ring)).n
+        with pytest.raises(ValueError, match="dimension"):
+            sp.SparqConfig(topology=ring).resolved_gamma()
+        bad = fl.FaultPlan(stragglers=(7,), straggler_frac=0.5)
+        with pytest.raises(ValueError, match="out of range"):
+            sp.make_step(sp.SparqConfig(topology=ring, faults=bad),
+                         lambda x, t, k: x)
 
 
 # ------------------------------------------------- the compressor registry

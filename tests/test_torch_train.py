@@ -1,6 +1,7 @@
-"""The port's train entry point on the CPU at a tiny size, its refusals of
-flags whose features are not ported yet, and the rule that nothing drops to
-the CPU or to a plain version on its own."""
+"""The port's train entry point on the CPU at a tiny size: the kernel path,
+the generic path, the fault and time-varying-plan flags with their effect,
+the refusals of flags whose features are not ported yet, and the rule that
+nothing drops to the CPU or to a plain version on its own."""
 import ast
 import math
 import os
@@ -12,6 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
+from repro_torch.core.compression import TopFrac  # noqa: E402
+from repro_torch.core.faults import FaultPlan  # noqa: E402
+from repro_torch.dist import sparq_dist  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels.sign_topk import sign_topk_blocks  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -38,19 +42,103 @@ def test_train_entry_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--link-drop", "0.1"], ["--stragglers", "0"],
-    ["--dropout-window", "0:1:2"], ["--dynamic", "matchings"],
-    ["--ckpt-dir", "ckpt"], ["--resume"], ["--lint"], ["--devices", "8"]],
+    ["--ckpt-dir", "ckpt"], ["--ckpt-every", "2"], ["--resume"], ["--lint"],
+    ["--devices", "8"]],
     ids=lambda f: f[0])
 def test_unported_flags_refuse(flags):
     with pytest.raises(SystemExit, match="not ported"):
         train.run(TINY + flags)
 
 
-def test_run_without_kernel_refuses():
+def _run_logged(argv):
+    """train.run with every sync's engine record kept."""
+    syncs = []
+    out = train.run(argv, on_sync=lambda diff, info: syncs.append(
+        {k: v.clone() if isinstance(v, torch.Tensor) else v
+         for k, v in info.items()}))
+    return out, syncs
+
+
+def _reckoned_bits(syncs, payload):
+    """flag + trig * payload to each live neighbour, summed in float64."""
+    return sum(float(((1.0 + s["trig"].double() * payload)
+                      * s["deg"].double()).sum()) for s in syncs)
+
+
+def _x0_row(cfg):
+    init_fn, _, _ = sparq_dist.build_sparq(
+        cfg, sparq_dist.DistSparqConfig(use_kernel=True), device="cpu")
+    return init_fn(seed=0)["params"][0]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--link-drop", "0.5", "--fault-seed", "3"],
+    ["--stragglers", "0", "--straggler-frac", "1.0", "--H", "5"],
+    ["--dropout-window", "0:0:4"],
+    ["--dynamic", "matchings", "--dynamic-rounds", "3"]],
+    ids=lambda f: f[0])
+def test_fault_and_plan_flags_run(flags):
+    """Each flag at the tiny size on the CPU, and its effect: bits charged
+    on the surviving links of the plan's own repair only; a straggler that
+    skips every step keeps x^0 exactly (no sync in 4 steps at H=5); an
+    offline node keeps x^0 through the syncs and sends nothing; a matchings
+    plan of R=3 gossips over round r's matrix at sync r."""
+    out, syncs = _run_logged(TINY + flags)
+    state, step, cfg = out["state"], out["train_step"], out["cfg"]
+    assert all(math.isfinite(v) for v in out["losses"])
+    assert state["sync_rounds"] == len(syncs)
+    got = float(state["bits"])
+    assert got == pytest.approx(_reckoned_bits(syncs, step.payload_bits),
+                                rel=1e-6)
+    assert int(state["triggers"]) == sum(int(s["trig"].sum()) for s in syncs)
+    ring = torch.tensor(step.plan.ws[0], dtype=torch.float32)
+    if flags[0] == "--link-drop":
+        plan = FaultPlan(link_drop=0.5, seed=3)
+        for s in syncs:
+            W, deg, live = plan.apply(ring, s["t"], s["sync_round"])
+            assert torch.equal(s["W"], W) and torch.equal(s["deg"], deg)
+            assert bool(live.all())
+        assert sum(float(s["deg"].sum()) for s in syncs) < 2 * 4 * len(syncs)
+    elif flags[0] == "--stragglers":
+        assert not syncs
+        assert torch.equal(state["params"][0], _x0_row(cfg))
+        assert not torch.equal(state["params"][1], state["params"][0])
+    elif flags[0] == "--dropout-window":
+        assert len(syncs) == 2
+        assert torch.equal(state["params"][0], _x0_row(cfg))
+        for s in syncs:
+            assert not s["live"][0] and not s["trig"][0]
+            assert s["deg"][0] == 0 and s["W"][0, 0] == 1.0
+        assert not state["x_hat"][0].any()
+    else:
+        assert step.plan.R == 3 and step.plan.name == "matchings(R=3)"
+        for s in syncs:
+            want = torch.tensor(step.plan.ws[s["sync_round"] % 3],
+                                dtype=torch.float32)
+            assert torch.equal(s["W"], want) and s["live"] is None
+            assert torch.equal(s["deg"], torch.ones(4))
+
+
+def test_run_without_kernel_takes_generic_path():
+    """No --use-kernel: a global SignTopK of --frac of each node's flat
+    vector (TopFrac), which launches no kernel, charged at its payload."""
     argv = [a for a in TINY if a != "--use-kernel"]
-    with pytest.raises(SystemExit, match="not ported"):
-        train.run(argv)
+    before = sign_topk_blocks.launches
+    out, syncs = _run_logged(argv)
+    state, step = out["state"], out["train_step"]
+    assert not step.use_kernel and step.compressor == TopFrac(frac=0.1)
+    assert step.payload_bits == TopFrac(frac=0.1).bits(step.d_model_total)
+    assert sign_topk_blocks.launches == before
+    assert state["sync_rounds"] == len(syncs) == 2
+    trig = int(state["triggers"])
+    assert trig > 0
+    want = 2 * (2 * 4 + trig * step.payload_bits)
+    assert float(state["bits"]) == pytest.approx(want, rel=1e-6)
+    assert not state["params"][:, step.d_model_total:].any()
+    # each node moved x_hat on exactly k = ceil(0.1 D) coordinates per sync
+    k = math.ceil(0.1 * step.d_model_total)
+    moved = (state["x_hat"] != 0).sum(dim=1)
+    assert bool((moved <= 2 * k).all()) and bool((moved > 0).all())
 
 
 def test_cuda_without_a_gpu_raises():
