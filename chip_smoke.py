@@ -39,14 +39,31 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       ``choco`` and ``sparq_faults`` held against ``tests/golden/*.json``,
       then SPARQ with BlockTopFrac at the paper's convex scale (n=60 ring,
       d=7840, T=4000; SignTopK once per sync) against the port's CPU run of
-      the same config; then the convex experiment
-      (``launch/convex_bits.py --full``), whose rows use the global
-      operators and launch no kernel;
+      the same config; then the convex experiment at its quick size
+      (``launch/convex_bits.py``) in the committed file's threefry layout,
+      its bits, triggers and rounds against ``BENCH_convex.json`` (its rows
+      use the global operators and launch no kernel);
    g. the fault experiment (``launch/faults_bits.py --full``: n=32,
       d=7840, T=2000), whose BlockTopFrac row launches SignTopK once per
       sync, and a profiled run of that row for its idle share; the topology
       experiment (``launch/topology_bits.py``) at its quick size; then both
       in quick mode on the card and on the CPU, row against row;
+   h. x^0 at full width: ``init_fn(key=PRNGKey(0))`` timed, with its
+      transient peak; the card's uniform bits of the first 2^20 values of
+      the embedding and of every layer's ``wo`` equal to a numpy draw on the
+      host, and the values within 4 ulps of the host's truncated normals;
+   i. checkpoint and resume at full width through the kernel (the main
+      path's flags and momentum 0.9): 6 unbroken steps saving at step 4,
+      then ``--resume`` from step 4 across the sync of t = 6; the files
+      read back chunk by chunk against the live buffers after the save and
+      after the restore (bit for bit), and the resumed run's final state
+      (kept on the host) against a repeat of the unbroken run's: integer
+      channels exact, float buffers bit for bit or boundary flips only;
+   j. the nonconvex, momentum and ablation experiments at their quick size
+      in the committed files' threefry layout, their bits, triggers and
+      sync rounds against ``BENCH_{nonconvex,momentum,ablation}.json``; two
+      rows on the card against the CPU in float32 over 30 steps; the
+      headline row profiled for its idle share;
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -57,8 +74,10 @@ the port's sources are not beside it.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -101,6 +120,10 @@ FAULT_FLAGS = ["--dynamic", "matchings", "--dynamic-rounds", "4",
                "--straggler-frac", "0.5", "--dropout-window", "2:1:4",
                "--fault-seed", "4"]
 FAULT_ARGS = MAIN_ARGS + FAULT_FLAGS
+# phase 3i: the main path's flags with momentum, so the opt rows are real
+CKPT_ARGS = MAIN_ARGS + ["--momentum", "0.9"]
+ULPS = 4           # x^0 against the host's draw (tests/test_torch_init.py)
+LM_RTOL = 1e-3     # LM rows, card against CPU (tests/test_torch_suites.py)
 # the generic path: no --use-kernel, one sync in 3 steps
 GENERIC_ARGS = [a for a in MAIN_ARGS if a != "--use-kernel"]
 GENERIC_ARGS[GENERIC_ARGS.index("--steps") + 1] = "3"
@@ -275,6 +298,392 @@ def check_golden(got_state, trace, want, case) -> None:
                                atol=1e-6)
 
 
+def ulps(got, want) -> int:
+    """The largest distance in float32 steps between two float32 tensors."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def phase_x0(torch, dev, counts, zero_counts, read_counts) -> None:
+    """3h: x^0 of qwen1.5-0.5b at full width, drawn on the card, against the
+    host's draws of the same keys."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import prng
+    from repro_torch.dist.sparq_dist import DistSparqConfig, build_sparq
+    from repro_torch.models.layers import dense_init
+    from repro_torch.models.transformer import init_keys
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), n_nodes=4)
+    init_fn, _, _ = build_sparq(cfg, DistSparqConfig(H=3, frac=0.1,
+                                                     use_kernel=True),
+                                device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    state = init_fn(key=prng.PRNGKey(0))
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["x0"] = read_counts()
+    held = torch.cuda.memory_allocated(dev) - base
+    transient = torch.cuda.max_memory_allocated(dev) - base - held
+    log(f"x^0: init_fn(key=PRNGKey(0)) at n=4, D={init_fn.d_model_total}: "
+        f"{wall:.3f} s host wall, {start.elapsed_time(end) / 1e3:.3f} s "
+        f"between its device events; state {held / 1e9:.2f} GB, transient "
+        f"peak above it {transient / 1e9:.3f} GB")
+    params = state["params"]
+    if not bool((params[1:] == params[0]).all()) or \
+            params[:, init_fn.d_model_total:].any():
+        raise AssertionError("x^0: rows differ or the tail is not zero")
+    # the card's uniform bits against numpy's on the host. In the
+    # partitionable layout a flat index's bits do not depend on the draw's
+    # size, so the host draws the first 2^20 only
+    if not prng.partitionable():
+        raise AssertionError("x^0: phase 3h runs the default layout")
+    keys = init_keys(cfg, prng.PRNGKey(0))
+    row = init_fn.unravel(params[0])
+    k_emb = keys[("embed", "embedding")]
+    emb = row["embed"]["embedding"]
+    n0 = min(1 << 20, emb.numel())
+    card_bits = prng.bits_range(prng.key_words(k_emb), emb.numel(), 0, n0,
+                                dev).cpu()
+    host_bits = prng.random_bits(k_emb, (n0,))
+    if not torch.equal(card_bits, host_bits):
+        raise AssertionError("x^0: embedding bits differ from the host's")
+    gap = ulps(emb.reshape(-1)[:n0].cpu(),
+               prng.truncated_normal_of_bits(host_bits, -2.0, 2.0) * 0.02)
+    wo_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    wo = row["seg0"]["attn"]["wo"]
+    for li in range(cfg.n_layers):
+        k = keys[("seg0", "attn", "wo")][li]
+        shape = tuple(wo.shape[1:])
+        n = wo[li].numel()
+        if not torch.equal(prng.bits_range(prng.key_words(k), n, 0, n,
+                                           dev).cpu(),
+                           prng.random_bits(k, shape).reshape(-1)):
+            raise AssertionError(f"x^0: wo[{li}] bits differ")
+        gap = max(gap, ulps(wo[li].cpu(), dense_init(k, shape,
+                                                     torch.float32,
+                                                     wo_scale)))
+    if gap > ULPS:
+        raise AssertionError(f"x^0: {gap} ulps from the host's draw")
+    log(f"x^0: uniform bits == the host's numpy draw on {n0} embedding "
+        f"values and all {cfg.n_layers} x {wo[0].numel()} of wo; values "
+        f"within {gap} ulps of the host's truncated normals (bound {ULPS})")
+    del state, params, row, emb, wo
+    torch.cuda.empty_cache()
+
+
+def _bits(x):
+    """``x`` viewed as integers of its width, for bitwise comparison."""
+    import torch
+    return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[x.element_size()])
+
+
+def host_pairs(state, host):
+    """``ckpt.compare``'s walk for a state kept on the host: a function of
+    ``visit`` that calls it with (key, lo, hi, live chunk, host chunk on the
+    live tensor's device) for every chunk of every leaf, in ``keys`` order
+    when given."""
+    import torch
+    from repro_torch.checkpoint import ckpt
+
+    def walk(visit, keys=None):
+        live, kept = dict(ckpt._leaves(state)), dict(ckpt._leaves(host))
+        for key in keys or sorted(live):
+            a, b = ckpt._as_tensor(live[key]), ckpt._as_tensor(kept[key])
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{key}: {a.dtype} {tuple(a.shape)} "
+                                     f"!= {b.dtype} {tuple(b.shape)}")
+            fa, fb = a.view(-1), b.view(-1)
+            for lo, hi in ckpt._ranges(a, 1 << 24):
+                visit(key, lo, hi, fa[lo:hi], fb[lo:hi].to(a.device))
+    return walk
+
+
+def saved_pairs(directory, step, state):
+    """The same walk over a checkpoint's files (``ckpt.compare``)."""
+    from repro_torch.checkpoint import ckpt
+
+    def walk(visit, keys=None):
+        ckpt.compare(directory, step, state, visit, keys=keys)
+    return walk
+
+
+def differing(walk):
+    """Per key: (entries whose bits differ, largest absolute difference)."""
+    out = {}
+
+    def visit(key, lo, hi, live, other):
+        n, gap = out.get(key, (0, 0.0))
+        bad = _bits(live) != _bits(other)
+        k = int(bad.sum())
+        if k:
+            gap = max(gap, float((live.double() - other.double()).abs()
+                                 .max()))
+        out[key] = (n + k, gap)
+    walk(visit)
+    return out
+
+
+def flips_only_walk(walk, state, atol=5e-4, block=1024, per_tile=8,
+                    tile_share=0.01):
+    """``flips_only`` over a chunk walk: x_hat may differ beyond ``atol`` on
+    a few entries of a few tiles, params and the optimizer rows only in the
+    columns where some node's x_hat differs."""
+    import torch
+    d_pad = state["x_hat"].shape[1]
+    cols = torch.zeros(d_pad, dtype=torch.bool, device=state["x_hat"].device)
+    acc = {"tiles": 0, "flip_tiles": 0, "worst": 0, "far": 0, "rest": 0.0}
+
+    def visit(key, lo, hi, live, other):
+        d = (live.float() - other.float()).abs()
+        c = slice(lo % d_pad, lo % d_pad + (hi - lo))
+        if key == "x_hat":
+            far = (d > atol).view(-1, block).sum(-1)
+            acc["tiles"] += far.numel()
+            acc["flip_tiles"] += int((far > 0).sum())
+            acc["far"] += int(far.sum())
+            acc["worst"] = max(acc["worst"], int(far.max()))
+            cols[c] |= d > 1e-6
+            return
+        rest = d[~cols[c]]
+        if rest.numel():
+            acc["rest"] = max(acc["rest"], float(rest.max()))
+    # x_hat first: its flipped columns excuse params and the opt rows there
+    walk(visit, keys=["x_hat", "params"] + _opt_keys(state))
+    if acc["worst"] > per_tile or acc["flip_tiles"] > tile_share * \
+            acc["tiles"] or acc["rest"] > atol:
+        raise AssertionError(f"beyond boundary flips: {acc}")
+    return acc
+
+
+def _opt_keys(state):
+    from repro_torch.checkpoint import ckpt
+    return [k for k, v in ckpt._leaves({"opt": state["opt"]})
+            if hasattr(v, "dim") and v.dim() == 2]
+
+
+def phase_ckpt(torch, dev, train, counts, zero_counts, read_counts) -> None:
+    """3i: the full-width trainer with momentum, saved at step 4 of 6 and
+    resumed from there across the sync of t = 6. The phase writes one
+    full-width checkpoint (29.7 GB) and not two, to keep the run's disk
+    writes under 45 GiB, and the card cannot hold two trainers' states; so
+    the resumed run's final state is kept on the host and the unbroken run
+    is repeated (no checkpoint) to compare with it, after its counters were
+    checked against the first."""
+    tmp = tempfile.mkdtemp(prefix="sparq_ckpt_")
+    try:
+        du = shutil.disk_usage(tmp)
+        log(f"checkpoint: {tmp} on a disk of {du.total / 1e9:.1f} GB, "
+            f"{du.free / 1e9:.1f} GB free")
+        checks = []
+
+        def read_back(kind, path, step, state):
+            t0 = time.perf_counter()
+            diff = differing(saved_pairs(os.path.dirname(path), step, state))
+            checks.append((kind, step, time.perf_counter() - t0))
+            bad = {k: v for k, v in diff.items() if v[0]}
+            if bad:
+                raise AssertionError(f"checkpoint {kind} at step {step}: "
+                                     f"files differ from the live state: "
+                                     f"{bad}")
+
+        def counters(st):
+            return {k: (int(st[k]) if k in ("t", "sync_rounds") else
+                        float(st[k])) for k in ("t", "sync_rounds",
+                                                "triggers", "bits", "bits_c")}
+        args = CKPT_ARGS + ["--ckpt-dir", tmp]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        r1 = train.run(args + ["--ckpt-every", "4"], on_checkpoint=read_back)
+        counts["ckpt_unbroken"] = read_counts()
+        peak1 = torch.cuda.max_memory_allocated(dev) / 1e9
+        if [s["step"] for s in r1["saves"]] != [4]:
+            raise AssertionError(f"checkpoint: saves {r1['saves']}")
+        want = counters(r1["state"])
+        steps1, save = r1["s_per_step"], r1["saves"][0]
+        del r1
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        r2 = train.run(args + ["--resume"], on_checkpoint=read_back)
+        counts["ckpt_resumed"] = read_counts()
+        peak2 = torch.cuda.max_memory_allocated(dev) / 1e9
+        rest = r2["restore"]
+        launches = counts["ckpt_resumed"]["sign_topk_blocks"]
+        if r2["start"] != 4 or len(r2["losses"]) != 2 or launches != 1:
+            raise AssertionError(f"resume: start {r2['start']}, losses "
+                                 f"{r2['losses']}, {launches} SignTopK "
+                                 f"launches (want 1)")
+        got = counters(r2["state"])
+        if got != want:
+            raise AssertionError(f"resume: {got} != unbroken {want}")
+        resumed = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                   for k, v in r2["state"].items()}
+        steps2 = r2["s_per_step"]
+        del r2
+        shutil.rmtree(tmp)
+        torch.cuda.empty_cache()
+        r3 = train.run(CKPT_ARGS)
+        if counters(r3["state"]) != want:
+            raise AssertionError(f"unbroken again: {counters(r3['state'])} "
+                                 f"!= {want}")
+        t0 = time.perf_counter()
+        walk = host_pairs(r3["state"], resumed)
+        diff = differing(walk)
+        if any(n for n, _ in diff.values()):
+            fl = flips_only_walk(walk, r3["state"])
+            verdict = f"boundary flips only: {fl}"
+        else:
+            verdict = "bit for bit"
+        cmp_s = time.perf_counter() - t0
+        rest_steps = steps1[1:]
+        log(f"checkpoint, unbroken run: save at step 4 of {save['gb']:.3f} "
+            f"GB in {save['s']:.2f} s ({save['gb'] / save['s']:.2f} GB/s), "
+            f"host peak RSS {save['host_rss_gb']:.2f} GB; s/step "
+            f"{[round(v, 4) for v in steps1]}, steps 2..6 mean "
+            f"{sum(rest_steps) / len(rest_steps):.4f} s; device peak "
+            f"{peak1:.2f} GB; SignTopK {counts['ckpt_unbroken']}")
+        log(f"checkpoint, resumed run: restore of {rest['gb']:.3f} GB in "
+            f"{rest['s']:.2f} s ({rest['gb'] / rest['s']:.2f} GB/s), host "
+            f"peak RSS {rest['host_rss_gb']:.2f} GB; s/step "
+            f"{[round(v, 4) for v in steps2]}; device peak {peak2:.2f} GB; "
+            f"SignTopK launches {launches}")
+        log("checkpoint: files == live buffers after " + ", ".join(
+            f"the {k} at step {st} (read back in {t:.2f} s)"
+            for k, st, t in checks))
+        log(f"checkpoint: resumed == unbroken: counters {got}; float "
+            f"buffers {verdict}; per key (entries differing, largest gap) "
+            f"{diff} (compared in {cmp_s:.2f} s)")
+        del r3, resumed, walk
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+class Float32Reduced:
+    """A registry config whose ``reduced()`` computes in float32."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def reduced(self, **kw):
+        import dataclasses
+        return dataclasses.replace(self.cfg.reduced(**kw),
+                                   compute_dtype="float32")
+
+
+def phase_suites(torch, dev, counts, zero_counts, read_counts) -> None:
+    """3j: the nonconvex, momentum and ablation experiments in the
+    committed files' layout."""
+    import functools
+    import numpy as np
+    from repro_torch.core import engine, prng
+    from repro_torch.core.sparq import make_step
+    from repro_torch.launch import (ablation_bits, lm_workload,
+                                    momentum_bits, nonconvex_bits)
+    from repro_torch.models import attention
+    with prng.threefry_partitionable(False):
+        for mod, suite, rounds in ((nonconvex_bits, "nonconvex",
+                                    "sync_rounds"),
+                                   (momentum_bits, "momentum", "sync_rounds"),
+                                   (ablation_bits, "ablation", "rounds")):
+            with open(os.path.join(ROOT, f"BENCH_{suite}.json")) as f:
+                want = {r["name"]: r for r in json.load(f)["rows"]}
+            zero_counts()
+            t0 = time.perf_counter()
+            rows = mod.run_bench(quick=True, device="cuda")
+            counts[f"{suite}_bits"] = read_counts()
+            if mod is nonconvex_bits:
+                nonconvex = rows
+            for r in rows:
+                w = want[r["name"]]
+                cols = ("bits", "trigger_events", rounds)
+                if any(r[c] != w[c] for c in cols):
+                    raise AssertionError(
+                        f"{suite} {r['name']}: {[r[c] for c in cols]} != "
+                        f"BENCH_{suite}.json's {[w[c] for c in cols]}")
+                if not math.isfinite(r["final_loss"]):
+                    raise AssertionError(f"{suite} {r['name']}: loss")
+                log(f"{suite} {r['name']:22s} bits {r['bits']:.6e} triggers "
+                    f"{r['trigger_events']} rounds {r[rounds]} final_loss "
+                    f"{r['final_loss']:.6f} (file {w['final_loss']}) "
+                    f"us_per_call {r['us_per_call']:.1f} peak "
+                    f"{r['peak_hbm_bytes']}")
+            log(f"{suite} quick: {len(rows)} rows == BENCH_{suite}.json in "
+                f"bits, triggers and rounds; launches "
+                f"{counts[f'{suite}_bits']} ({time.perf_counter() - t0:.1f} "
+                f"s)")
+        # two rows on the card against the CPU over the CPU tests' 30 steps,
+        # in float32 compute and float32 scores, as those tests hold them
+        # against the reference (the two rows have one configuration:
+        # SPARQ with momentum 0.9 is SQuARM)
+        get_config, chunked = lm_workload.get_config, \
+            attention.chunked_attention
+        try:
+            lm_workload.get_config = lambda n: Float32Reduced(get_config(n))
+            attention.chunked_attention = functools.partial(
+                chunked, score_dtype=torch.float32)
+            wls = {w: lm_workload.make_lm_workload(True, w)._replace(
+                T=30, rec=10) for w in ("cuda", "cpu")}
+            for name, cfgs in (("sparq_signtop10_mom",
+                                nonconvex_bits.configs),
+                               ("squarm", momentum_bits.configs)):
+                traces = {}
+                for where, wl in wls.items():
+                    cfg = cfgs(wl)[name]
+                    runner = engine.make_runner(
+                        make_step(cfg, wl.grad_fn), wl.T,
+                        record_every=wl.rec, eval_fn=wl.eval_fn)
+                    traces[where] = runner(cfg.init_state(wl.flat0),
+                                           prng.PRNGKey(1))[1].to_dict()
+                g, c = traces["cuda"], traces["cpu"]
+                for col in ("t", "bits", "sync_rounds", "triggers"):
+                    if g[col] != c[col]:
+                        raise AssertionError(f"{name}: card and CPU {col} "
+                                             f"differ")
+                np.testing.assert_allclose(g["loss"], c["loss"],
+                                           rtol=LM_RTOL, err_msg=name)
+                gap = max(abs(a - b) / abs(b) for a, b in zip(g["loss"],
+                                                              c["loss"]))
+                log(f"{name}, float32, card == CPU in bits, triggers and "
+                    f"rounds; losses {g['loss']} (CPU {c['loss']}), largest "
+                    f"relative gap {gap:.3e}")
+        finally:
+            lm_workload.get_config = get_config
+            attention.chunked_attention = chunked
+        # where a quick LM step goes: 20 steps of the headline row under
+        # the profiler, against its unprofiled time per step above
+        wl = lm_workload.make_lm_workload(True, "cuda")
+        cfg = nonconvex_bits.configs(wl)["sparq_signtop10_mom"]
+        us = next(r["us_per_call"] for r in nonconvex
+                  if r["name"] == "sparq_signtop10_mom")
+        steps = 20
+        dev_s, acts, idle = profiled(
+            torch, lambda: engine.make_runner(make_step(cfg, wl.grad_fn),
+                                              steps)(
+                cfg.init_state(wl.flat0), prng.PRNGKey(1)), steps, us / 1e6,
+            tables=(("self_cpu_time_total", 8),))
+        log(f"nonconvex quick sparq_signtop10_mom, profiled {steps} steps: "
+            f"device {dev_s * 1e6:.1f} us/step over {acts:.0f} "
+            f"activities/step; against the unprofiled {us:.1f} us/step the "
+            f"device is idle {100 * idle:.1f}%")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -290,7 +699,7 @@ def main() -> int:
 
     from repro_torch import kernels
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import schedule, triggers
+    from repro_torch.core import prng, schedule, triggers
     from repro_torch.dist.sparq_dist import (DistSparqConfig, _flatten_spec,
                                              build_sparq)
     from repro_torch.kernels import parity
@@ -304,6 +713,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    torch.empty(0, device=dev)       # the context, before any memory query
     t_all = time.perf_counter()
 
     # ---------------------------------------------------------- 1. set-up
@@ -326,6 +736,8 @@ def main() -> int:
 
     def read_counts():
         return {fn.__name__: fn.launches for fn in launch_counts}
+
+    counts = {}
 
     # ------------------------------------------- 2. kernel vs plain, timing
     # the cases reach magnitudes of 1e35, so their absolute error is kept
@@ -445,9 +857,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     batch = {k: rng.integers(0, 256, (4, 2, 16)).astype(np.int32)
              for k in ("tokens", "labels")}
-    cpu_gen = torch.Generator()
-    cpu_gen.manual_seed(0)
-    p0 = init_params(small, cpu_gen)
+    p0 = init_params(small, prng.PRNGKey(0))
     out = {}
     for where in ("cuda", "cpu"):
         init_fn, step, _ = build_sparq(small, dcfg, device=where)
@@ -480,7 +890,7 @@ def main() -> int:
     alloc0 = alloc_counts(torch)
     result = train.run(MAIN_ARGS)
     alloc1 = alloc_counts(torch)
-    counts = {"train": read_counts()}
+    counts["train"] = read_counts()
     launches = counts["train"]["sign_topk_blocks"]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     state, step = result["state"], result["train_step"]
@@ -844,8 +1254,13 @@ def main() -> int:
         f"{100 * idle_c:.1f}%; one step's minibatch draws "
         f"(split + randint, on the host) {draw_us:.1f} us")
 
+    # the convex experiment at its quick size (the paper-scale engine runs
+    # above), in the committed file's layout and held against it
+    with open(os.path.join(ROOT, "BENCH_convex.json")) as f:
+        want_convex = {r["name"]: r for r in json.load(f)["rows"]}
     zero_counts()
-    convex = convex_bits.run_bench(quick=False, device="cuda")
+    with prng.threefry_partitionable(False):
+        convex = convex_bits.run_bench(quick=True, device="cuda")
     counts["convex"] = read_counts()
     for r in convex:
         log(f"convex {r['name']:22s} final_loss {r['final_loss']:.6f} bits "
@@ -855,8 +1270,15 @@ def main() -> int:
         loss = np.asarray(r["trace"]["loss"])
         if not np.all(np.isfinite(loss)) or loss[-1] >= loss[0]:
             raise AssertionError(f"convex {r['name']}: losses {loss}")
-    log(f"convex experiment: launches {counts['convex']} (its rows use the "
-        f"global operators); reference-engine phase "
+        w = want_convex[r["name"]]
+        cols = ("bits", "trigger_events", "rounds")
+        if any(r[c] != w[c] for c in cols):
+            raise AssertionError(f"convex {r['name']}: {[r[c] for c in cols]}"
+                                 f" != BENCH_convex.json's "
+                                 f"{[w[c] for c in cols]}")
+    log(f"convex experiment, quick: {len(convex)} rows == BENCH_convex.json "
+        f"in bits, triggers and rounds; launches {counts['convex']} (its rows "
+        f"use the global operators); reference-engine phase "
         f"{time.perf_counter() - t_p:.1f} s")
 
     # ----------------------------- 3g. the fault and topology experiments
@@ -930,6 +1352,14 @@ def main() -> int:
     log(f"fault and topology experiments: launches "
         f"{counts['faults_bits']} and {counts['topology_bits']} "
         f"({time.perf_counter() - t_p:.1f} s)")
+
+    # ------------------------- 3h-3j. x^0, checkpoint/resume, LM suites
+    for name, phase, args in (
+            ("3h", phase_x0, ()), ("3i", phase_ckpt, (train,)),
+            ("3j", phase_suites, ())):
+        t0 = time.perf_counter()
+        phase(torch, dev, *args, counts, zero_counts, read_counts)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------- 4. report
     def by_path(name):

@@ -55,6 +55,7 @@ the same dict.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
                     Tuple, Union)
@@ -209,6 +210,40 @@ def _get(tree: Mapping[str, Any], path: Tuple[str, ...]) -> Any:
     return tree
 
 
+def unravel(flat: torch.Tensor, slices: Tuple[Slice, ...]) -> Dict[str, Any]:
+    """One node row, (D_pad,) or (D,), as the model tree of views into it
+    (the ravel plan ``slices`` of :func:`_flatten_spec`)."""
+    tree: Dict[str, Any] = {}
+    for path, off, size, shape in slices:
+        _set(tree, path, flat[off:off + size].view(shape))
+    return tree
+
+
+def grad_views(row: torch.Tensor, grad_row: torch.Tensor,
+               slices: Tuple[Slice, ...], n_layers: int) -> Dict[str, Any]:
+    """One node's model tree for a backward pass: detached views of ``row``
+    that require grad, each with the matching view of ``grad_row`` as its
+    ``.grad``, so backward accumulates straight into ``grad_row``. The stack
+    ``seg0`` is one tree per layer, so that backward never materializes a
+    zero gradient of the whole stack per layer."""
+    def leaf(lo: int, size: int, shape) -> torch.Tensor:
+        out = row[lo:lo + size].view(shape).detach()
+        out.requires_grad_(True)
+        out.grad = grad_row[lo:lo + size].view(shape)
+        return out
+
+    tree: Dict[str, Any] = {"seg0": [{} for _ in range(n_layers)]}
+    for path, off, size, shape in slices:
+        if path[0] != "seg0":
+            _set(tree, path, leaf(off, size, shape))
+            continue
+        per = size // n_layers
+        for li in range(n_layers):
+            _set(tree["seg0"][li], path[1:],
+                 leaf(off + li * per, per, shape[1:]))
+    return tree
+
+
 def _column_chunks(width: int) -> Iterator[slice]:
     for lo in range(0, width, COLUMN_CHUNK):
         yield slice(lo, min(width, lo + COLUMN_CHUNK))
@@ -223,10 +258,11 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
 
     Returns ``(init_fn, train_step, pshape)``:
 
-    * ``init_fn(seed=0, params=None) -> state``: identical x^0 on every
-      node (random weights from ``seed``, the same on every device, or the
-      given parameter tree, e.g.
-      ``params_from_jax``), x_hat = 0;
+    * ``init_fn(key=PRNGKey(0), params=None) -> state``: identical x^0 on
+      every node, x_hat = 0. x^0 is the reference's
+      ``init_params(cfg, key)`` (the same threefry draws on every device),
+      drawn once into row 0 and tiled, or the given parameter tree (e.g.
+      ``params_from_jax``);
     * ``train_step(state, batch) -> (state, metrics)``: one Algorithm 1
       step, updating ``state`` in place; ``batch`` holds ``(n, per_node,
       seq)`` integer arrays or tensors ``tokens`` and ``labels``;
@@ -275,36 +311,34 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     gamma = dcfg.resolved_gamma(plan, D)
     payload = float(comp_eff.bits(D))
 
-    def unravel(flat: torch.Tensor) -> Dict[str, Any]:
-        """One node row (D_pad,) or (D,) -> model tree of views."""
-        tree: Dict[str, Any] = {}
-        for path, off, size, shape in slices:
-            _set(tree, path, flat[off:off + size].view(shape))
-        return tree
-
     def ravel(tree: Mapping[str, Any]) -> torch.Tensor:
         """Model tree -> (D,) float32 flat vector, in the ravel plan's order."""
         return torch.cat([_get(tree, path).reshape(-1).to(torch.float32)
                           for path, _, _, _ in slices])
 
-    def init_fn(seed: int = 0, params: Optional[Mapping[str, Any]] = None
-                ) -> State:
-        if params is None:
-            # drawn on the host, so a seed gives the same weights on every
-            # device (a run on the CPU reproduces the card's)
-            gen = torch.Generator()
-            gen.manual_seed(seed)
-            params = init_params(cfg, gen)
+    def zero_state() -> State:
+        """A t = 0 state with every buffer zero: what a restore fills."""
         flat = torch.zeros((n, D_pad), dtype=torch.float32, device=dev)
-        for path, off, size, _ in slices:
-            flat[0, off:off + size].copy_(_get(params, path).reshape(-1))
-        flat[1:].copy_(flat[0].expand(n - 1, D_pad))
         total, comp_ = bits_mod.acc_init(dev)
         return {"params": flat,
                 "x_hat": torch.zeros((n, D_pad), dtype=xhat_dt, device=dev),
                 "opt": opt.init(flat), "t": 0, "bits": total,
                 "bits_c": comp_, "sync_rounds": 0,
                 "triggers": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def init_fn(key: Optional[torch.Tensor] = None,
+                params: Optional[Mapping[str, Any]] = None) -> State:
+        state = zero_state()
+        flat = state["params"]
+        if params is None:
+            # x^0 drawn leaf by leaf straight into row 0, on this device
+            init_params(cfg, prng.PRNGKey(0) if key is None else key,
+                        out=unravel(flat[0], slices))
+        else:
+            for path, off, size, _ in slices:
+                flat[0, off:off + size].copy_(_get(params, path).reshape(-1))
+        flat[1:].copy_(flat[0].expand(n - 1, D_pad))
+        return state
 
     def node_losses_grads(params: torch.Tensor, batch: Mapping[str, Any],
                           grads: torch.Tensor) -> torch.Tensor:
@@ -315,24 +349,8 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
             raise ValueError(f"batch_per_node {per} is not a multiple of "
                              f"microbatches {mbs}")
         m = per // mbs
-        def leaf(i: int, lo: int, size: int, shape) -> torch.Tensor:
-            out = params[i, lo:lo + size].view(shape).detach()
-            out.requires_grad_(True)
-            out.grad = grads[i, lo:lo + size].view(shape)
-            return out
-
-        L = cfg.n_layers
         for i in range(n):
-            tree: Dict[str, Any] = {"seg0": [{} for _ in range(L)]}
-            for path, off, size, shape in slices:
-                if path[0] != "seg0":
-                    _set(tree, path, leaf(i, off, size, shape))
-                    continue
-                # one leaf per layer of the stack
-                per = size // L
-                for li in range(L):
-                    _set(tree["seg0"][li], path[1:],
-                         leaf(i, off + li * per, per, shape[1:]))
+            tree = grad_views(params[i], grads[i], slices, cfg.n_layers)
             for j in range(mbs):
                 sub = {k: v[i, j * m:(j + 1) * m] for k, v in batch.items()}
                 loss = lm_loss(cfg, tree, sub)[0]
@@ -466,6 +484,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
         fn.d_model_total = int(D)
         fn.d_pad = int(D_pad)
         fn.gamma = float(gamma)
-        fn.unravel = unravel
+        fn.unravel = functools.partial(unravel, slices=slices)
         fn.ravel = ravel
+    init_fn.zero_state = zero_state
     return init_fn, train_step, pshape

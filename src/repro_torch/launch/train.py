@@ -11,16 +11,28 @@ The whole ``--nodes`` ensemble lives on one device, ``cuda`` unless
 the run takes the generic path, a global SignTopK of ``--frac`` of each
 node's flat vector. ``--dynamic`` picks a time-varying gossip plan and
 ``--link-drop``, ``--stragglers``/``--straggler-frac``, ``--dropout-window``
-and ``--fault-seed`` inject faults. Flags whose features are not ported yet
-raise with the reason: checkpoints (``--ckpt-dir``, ``--resume``),
-``--lint``, and ``--devices`` (the mesh factoring waits for the sharding
-slice).
+and ``--fault-seed`` inject faults. x^0 is the reference's
+``init_params(cfg, PRNGKey(0))``, drawn from the threefry stream that
+``JAX_THREEFRY_PARTITIONABLE`` selects (unset: partitionable).
+
+``--ckpt-dir D --ckpt-every N`` saves the whole train state to
+``D/step_<i>`` after every N-th step; ``--resume`` restores the latest one
+and runs the steps left up to ``--steps``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --nodes 4 \
+      --use-kernel --steps 6 --H 3 --ckpt-dir ckpt --ckpt-every 4
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --nodes 4 \
+      --use-kernel --steps 6 --H 3 --ckpt-dir ckpt --resume
+
+Flags whose features are not ported yet raise with the reason: ``--lint``
+and ``--devices`` (the mesh factoring waits for the sharding slice).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import math
+import resource
 import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -97,9 +109,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
     waits = [
         (args.devices, "--devices: the mesh factoring waits for the "
                        "sharding slice; the ensemble runs on one device"),
-        (args.ckpt_dir or args.ckpt_every or args.resume,
-         "--ckpt-dir/--ckpt-every/--resume: checkpointing is not ported yet "
-         "(ROADMAP.md, checkpoint/resume and the rest of the CLI)"),
         (args.lint, "--lint: the static audit checks XLA programs and has no "
                     "counterpart in the port yet (ROADMAP.md, audits)"),
     ]
@@ -132,17 +141,30 @@ def _fault_plan(args: argparse.Namespace) -> FaultPlan:
         dropout=windows, seed=args.fault_seed)
 
 
-def run(argv: Optional[Sequence[str]] = None, on_sync=None) -> Dict[str, Any]:
+def host_peak_rss_gb() -> float:
+    """The process's peak resident set so far (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def run(argv: Optional[Sequence[str]] = None, on_sync=None,
+        on_checkpoint=None) -> Dict[str, Any]:
     """Parse ``argv``, train, and return what the run produced: ``losses``
-    (one float per step), the final ``state`` and ``metrics``, the engine's
-    ``train_step`` (its metadata attributes), and ``s_per_step`` (host clock
-    around each step, synchronized on CUDA). ``on_sync`` is passed on to
-    ``build_sparq``."""
+    (one float per step run), the final ``state`` and ``metrics``, the
+    engine's ``train_step`` (its metadata attributes), ``s_per_step`` (host
+    clock around each step, synchronized on CUDA), ``start`` (the step a
+    resume began at), and the ``saves`` and ``restore`` records (path, GB,
+    seconds, host peak RSS). ``on_sync`` is passed on to ``build_sparq``;
+    ``on_checkpoint(kind, path, step, state)`` is called after every save
+    (``"save"``) and after the restore (``"restore"``)."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    if args.resume and not args.ckpt_dir:
+        raise SystemExit("[train] --resume needs --ckpt-dir")
     faults = _fault_plan(args)
 
+    from repro_torch.checkpoint import ckpt
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import prng
     from repro_torch.core.schedule import decaying
     from repro_torch.core.triggers import constant
     from repro_torch.data.synthetic import TokenPipeline
@@ -181,20 +203,52 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None) -> Dict[str, Any]:
               f"stragglers={faults.stragglers}@{faults.straggler_frac} "
               f"dropout={[(w.node, w.start, w.end) for w in faults.dropout]} "
               f"seed={faults.seed}")
-    state = init_fn(seed=0)
-    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
-                         batch_per_node=args.batch_per_node,
-                         n_nodes=cfg.n_nodes, seed=0)
 
     def sync_device():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    start, last, restored = 0, None, None
+    if args.resume:
+        last = ckpt.latest_step(args.ckpt_dir)
+        if last is None:
+            print(f"[train] --resume: no checkpoint under "
+                  f"{args.ckpt_dir!r}, starting fresh")
+    if last is not None:
+        # the whole train state (params, x_hat, optimizer buffers, t,
+        # bits/bits_c, sync_rounds, triggers) read into a zero state: no
+        # x^0 is drawn for it
+        t0 = time.perf_counter()
+        state = ckpt.restore(args.ckpt_dir, last, like=init_fn.zero_state())
+        sync_device()
+        path = f"{args.ckpt_dir}/step_{last}"
+        restored = {"path": path, "step": last,
+                    "gb": ckpt.nbytes(state) / 1e9,
+                    "s": time.perf_counter() - t0,
+                    "host_rss_gb": host_peak_rss_gb()}
+        start = last
+        print(f"[train] resumed full train state from step {last} "
+              f"(t={state['t']}, bits={float(state['bits']):.3e}): "
+              f"{restored['gb']:.3f} GB in {restored['s']:.2f} s, host peak "
+              f"RSS {restored['host_rss_gb']:.2f} GB")
+        if on_checkpoint is not None:
+            on_checkpoint("restore", path, last, state)
+    else:
+        t0 = time.perf_counter()
+        state = init_fn(key=prng.PRNGKey(0))
+        sync_device()
+        print(f"[train] x^0 = init_params(PRNGKey(0)) drawn in "
+              f"{time.perf_counter() - t0:.2f} s")
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                         batch_per_node=args.batch_per_node,
+                         n_nodes=cfg.n_nodes, seed=0)
+
     losses: List[torch.Tensor] = []
     s_per_step: List[float] = []
+    saves: List[Dict[str, Any]] = []
     metrics: Optional[Dict[str, Any]] = None
     t_start = time.perf_counter()
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         batch = pipe.global_batch(i)
         sync_device()
         t0 = time.perf_counter()
@@ -207,10 +261,27 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None) -> Dict[str, Any]:
                   f"eta {float(metrics['eta']):.4f} "
                   f"bits {float(metrics['bits']):.3e} "
                   f"triggers {int(metrics['triggers'])} "
-                  f"({(time.perf_counter() - t_start) / (i + 1):.2f}s/step)")
+                  f"({(time.perf_counter() - t_start) / (i + 1 - start):.2f}"
+                  f"s/step)")
+        if args.ckpt_dir and args.ckpt_every and \
+                (i + 1) % args.ckpt_every == 0:
+            t0 = time.perf_counter()
+            path = ckpt.save(args.ckpt_dir, i + 1, state)
+            rec = {"path": path, "step": i + 1,
+                   "gb": ckpt.nbytes(state) / 1e9,
+                   "s": time.perf_counter() - t0,
+                   "host_rss_gb": host_peak_rss_gb()}
+            saves.append(rec)
+            print(f"[train] checkpoint -> {path}: {rec['gb']:.3f} GB in "
+                  f"{rec['s']:.2f} s, host peak RSS {rec['host_rss_gb']:.2f} "
+                  f"GB")
+            if on_checkpoint is not None:
+                on_checkpoint("save", path, i + 1, state)
     loss_values = [float(v) for v in losses]
     if metrics is None:
-        print(f"[train] DONE no steps run (steps={args.steps})")
+        # steps <= start: --steps 0, or a resume that is already complete
+        print(f"[train] DONE no steps run (start={start}, "
+              f"steps={args.steps})")
     else:
         print(f"[train] DONE loss={loss_values[-1]:.4f} "
               f"total_bits={float(metrics['bits']):.3e} "
@@ -218,7 +289,8 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None) -> Dict[str, Any]:
     if any(not math.isfinite(v) for v in loss_values):
         raise SystemExit(f"[train] non-finite loss: {loss_values}")
     return {"losses": loss_values, "state": state, "metrics": metrics,
-            "train_step": train_step, "cfg": cfg, "s_per_step": s_per_step}
+            "train_step": train_step, "cfg": cfg, "s_per_step": s_per_step,
+            "start": start, "saves": saves, "restore": restored}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

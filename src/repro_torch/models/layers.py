@@ -3,18 +3,19 @@
 numerics (casts to the compute dtype, float32 norms and RoPE angles) follow
 the reference step by step so the two can be compared.
 
-Initialization draws from an explicit ``torch.Generator``; it cannot give
-the reference's threefry numbers, so tests that compare the two packages
-hand the reference's weights over with ``transformer.params_from_jax``.
+Initialization draws from the reference's threefry keys
+(:mod:`repro_torch.core.prng`): the same uniform bits, and values within a
+few ulps of the reference's (its ``erfinv`` is XLA's polynomial, rounded
+per operation here).
 """
 from __future__ import annotations
 
-import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -25,13 +26,20 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
-               dtype: torch.dtype, scale: float = 0.02) -> torch.Tensor:
-    """scale * a standard normal truncated to [-2, 2] (inverse-CDF draw)."""
-    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    t.uniform_(lo, hi, generator=gen).erfinv_().mul_(math.sqrt(2.0))
-    return t.clamp_(-2.0, 2.0).mul_(scale).to(dtype)
+def dense_init(key: torch.Tensor, shape: Tuple[int, ...],
+               dtype: torch.dtype, scale: float = 0.02,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(scale * truncated_normal(key, -2, 2, shape)).astype(dtype)``, on
+    the key's device, or written into ``out`` (any float dtype, e.g. a view
+    of a flat float32 buffer) on its device."""
+    if out is not None and out.dtype == torch.float32 == dtype:
+        return prng.truncated_normal(key, -2.0, 2.0, shape, out=out).mul_(
+            scale)
+    dev = key.device if out is None else out.device
+    t = prng.truncated_normal(key, -2.0, 2.0, shape,
+                              out=torch.empty(shape, device=dev))
+    t = t.mul_(scale).to(dtype)
+    return t if out is None else out.copy_(t)
 
 
 # ---------------------------------------------------------------- norms

@@ -14,12 +14,13 @@ MoE, SSM, hybrid, MLA, MTP and decoding are not ported yet.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import prng
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
@@ -62,24 +63,73 @@ def param_shapes(cfg: ModelConfig) -> Params:
                      "norm2": dict(norm)}}
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    """Random weights with the reference's distributions: norm scales 1,
-    biases 0, ``wo`` at 0.02/sqrt(2L), every other matrix 0.02 times a
-    normal truncated to [-2, 2]. Drawn from ``gen`` on its device."""
+def init_keys(cfg: ModelConfig, key: torch.Tensor
+              ) -> Dict[Tuple[str, ...], torch.Tensor]:
+    """The reference's threefry key of every drawn leaf, hashed on the host:
+    ``split(key, 8)``; the embedding and LM head from ``split(keys[0])``;
+    the stacked layers from ``split(fold_in(keys[2], 0), n_layers)``, each
+    block ``split(k, 6)`` with the attention in ``split(ks[2], 4)`` and the
+    MLP in ``split(ks[3], 3)``. A stacked leaf's entry holds one key per
+    layer, (n_layers, 2)."""
+    _check_dense(cfg)
+    keys = prng.split(key.cpu(), 8)
+    k_embed = prng.split(keys[0])
+    out = {("embed", "embedding"): k_embed[0]}
+    if not cfg.tie_embeddings:
+        out[("embed", "lm_head")] = k_embed[1]
+    blocks = prng.split(prng.split(prng.fold_in(keys[2], 0), cfg.n_layers), 6)
+    ka, km = prng.split(blocks[:, 2], 4), prng.split(blocks[:, 3], 3)
+    for i, name in enumerate(("wq", "wk", "wv", "wo")):
+        out[("seg0", "attn", name)] = ka[:, i]
+    for i, name in enumerate(("w_in", "w_gate", "w_out")):
+        if name != "w_gate" or cfg.act == "swiglu":
+            out[("seg0", "mlp", name)] = km[:, i]
+    return out
+
+
+def init_params(cfg: ModelConfig, key: torch.Tensor,
+                out: Optional[Params] = None) -> Params:
+    """The reference's ``init_params(cfg, key)``: the leaves of
+    :func:`init_keys` drawn with ``dense_init`` (``wo`` at 0.02/sqrt(2L),
+    every other matrix at 0.02), norm scales 1, biases 0.
+
+    Without ``out`` the weights land on the key's device; with ``out``, a
+    tree of tensors of :func:`param_shapes` (e.g. views of one row of a flat
+    buffer), each layer's draw is written into its slice of the stacked leaf
+    and ``out`` is returned."""
+    _check_dense(cfg)
     dt = dtype_of(cfg.param_dtype)
+    if out is None:
+        def empty(tree):
+            return {k: empty(v) if isinstance(v, dict) else
+                    torch.empty(v, dtype=dt, device=key.device)
+                    for k, v in tree.items()}
+        out = empty(param_shapes(cfg))
+    for path, leaf in _tree_items(out):
+        if path[-1] == "scale":
+            leaf.fill_(1.0)
+        elif path[-1] in ("bias", "bq", "bk", "bv"):
+            leaf.zero_()
+    wo_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    for path, k in init_keys(cfg, key).items():
+        leaf = out
+        for p in path:
+            leaf = leaf[p]
+        scale = wo_scale if path[-1] == "wo" else 0.02
+        if path[0] != "seg0":
+            dense_init(k, tuple(leaf.shape), dt, scale, out=leaf)
+            continue
+        for li in range(cfg.n_layers):
+            dense_init(k[li], tuple(leaf.shape[1:]), dt, scale, out=leaf[li])
+    return out
 
-    def leaf(name: str, shape: Tuple[int, ...]) -> torch.Tensor:
-        if name == "scale":
-            return torch.ones(shape, dtype=dt, device=gen.device)
-        if name in ("bias", "bq", "bk", "bv"):
-            return torch.zeros(shape, dtype=dt, device=gen.device)
-        scale = 0.02 / math.sqrt(2 * cfg.n_layers) if name == "wo" else 0.02
-        return dense_init(gen, shape, dt, scale)
 
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else leaf(k, v)
-                for k, v in tree.items()}
-    return walk(param_shapes(cfg))
+def _tree_items(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _tree_items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any],

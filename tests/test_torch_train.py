@@ -41,10 +41,8 @@ def test_train_entry_runs_on_cpu():
     assert not state["params"][:, step.d_model_total:].any()
 
 
-@pytest.mark.parametrize("flags", [
-    ["--ckpt-dir", "ckpt"], ["--ckpt-every", "2"], ["--resume"], ["--lint"],
-    ["--devices", "8"]],
-    ids=lambda f: f[0])
+@pytest.mark.parametrize("flags", [["--lint"], ["--devices", "8"]],
+                         ids=lambda f: f[0])
 def test_unported_flags_refuse(flags):
     with pytest.raises(SystemExit, match="not ported"):
         train.run(TINY + flags)
@@ -68,7 +66,7 @@ def _reckoned_bits(syncs, payload):
 def _x0_row(cfg):
     init_fn, _, _ = sparq_dist.build_sparq(
         cfg, sparq_dist.DistSparqConfig(use_kernel=True), device="cpu")
-    return init_fn(seed=0)["params"][0]
+    return init_fn()["params"][0]
 
 
 @pytest.mark.parametrize("flags", [
