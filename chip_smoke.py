@@ -19,17 +19,16 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    a. the trainer (the main path): the port's train entry at the full width
       of qwen1.5-0.5b (24 layers, d_model 1024, vocab 151,936; random
       weights from seed 0), 4 nodes on the one card, 6 steps with a sync
-      every 3 (SignTopK); then a profiled run of 3 steps, whose sync's real
-      diff is kept, and the kernel held against its plain version on every
-      tile of that diff;
-   b. the kernel suite (``launch/bench_kernels.py --full``: SignTopK, QSGD
-      and the fused trigger against the oracle);
+      every 3 (SignTopK); then 3 more steps of the run profiled, whose
+      sync's real diff is kept, and the kernel timed on that diff and held
+      against its plain version on every tile of it;
    b. the faulty, time-varying trainer at the same full width: a random
       matchings plan of 4 rounds, 30 % link drop, node 1 straggling half
       its steps, node 2 offline for steps 1-3 (SignTopK once per sync);
       every sync's repaired matrix, degrees and liveness held against the
       plan's own repair on the host, and the bits against the reckoning
-      from them and the triggers; then a profiled run of 3 steps;
+      from them and the triggers; then, at depth 6 of 24, 4 steps and 3
+      more profiled (the profiler's host cost grows with the launches);
    c. the same flags at reduced width, on the card and on the CPU;
    d. the generic path at full width: no ``--use-kernel``, a global
       SignTopK of 10 % of each node's 619,570,176 entries, one sync;
@@ -64,6 +63,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       sync rounds against ``BENCH_{nonconvex,momentum,ablation}.json``; two
       rows on the card against the CPU in float32 over 30 steps; the
       headline row profiled for its idle share;
+   k. the MoE family and the new dense configs: deepseek-moe-16b at full
+      width (d_model 2048, 64 routed experts top-6 of width 1408, 2 shared,
+      vocab 102,400) cut to one dense and one MoE layer, 4 nodes, the main
+      path's flags through the train entry: SignTopK twice, bits against
+      the reckoning, every step's dropped choices and aux, the recomputed
+      routing equal to the forward's, the kernel timed on the last sync's
+      real diff and held against its plain version on every tile of it
+      chunk by chunk, then 3 more steps of the run profiled, and the kernel
+      timed at the same shape on Gaussian tiles; stablelm-1.6b at
+      full width and depth, 2 nodes, 3 steps; then at reduced width in
+      float32 on the card against the CPU: deepseek-moe-16b at n = 4 for 6
+      steps (the first routing of every node equal exactly, losses within
+      1e-4, x_hat and params up to boundary flips) and minitron-4b,
+      stablelm-1.6b, qwen1.5-32b, musicgen-large and chameleon-34b at
+      d_model 128, vocab 256 for 3 steps (losses within 1e-4);
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -575,14 +589,15 @@ def phase_ckpt(torch, dev, train, counts, zero_counts, read_counts) -> None:
 
 
 class Float32Reduced:
-    """A registry config whose ``reduced()`` computes in float32."""
+    """A registry config whose ``reduced()`` computes in float32, at the
+    sizes given here unless the caller gives its own."""
 
-    def __init__(self, cfg):
-        self.cfg = cfg
+    def __init__(self, cfg, **sizes):
+        self.cfg, self.sizes = cfg, sizes
 
     def reduced(self, **kw):
         import dataclasses
-        return dataclasses.replace(self.cfg.reduced(**kw),
+        return dataclasses.replace(self.cfg.reduced(**{**self.sizes, **kw}),
                                    compute_dtype="float32")
 
 
@@ -682,6 +697,320 @@ def phase_suites(torch, dev, counts, zero_counts, read_counts) -> None:
             f"activities/step; against the unprofiled {us:.1f} us/step the "
             f"device is idle {100 * idle:.1f}%")
     torch.cuda.empty_cache()
+
+
+class RouteLog:
+    """Every call of ``moe.route`` while installed, in order: the slot table
+    and the aux kept on the device (no host sync inside a step)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real = moe.route
+
+        def route(cfg, w, x):
+            out = self.real(cfg, w, x)
+            self.calls.append((out[0].detach().clone(), out[2].detach(),
+                               x.shape[0], cfg.moe_top_k))
+            return out
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.real
+
+
+class ArchRegistry:
+    """``registry.get_config`` answering ``make(cfg)`` for every arch while
+    installed: the train entry reads the registry when it is called."""
+
+    def __init__(self, make):
+        self.make = make
+
+    def __enter__(self):
+        from repro_torch.configs import registry
+        self.real = registry.get_config
+        registry.get_config = lambda arch: self.make(self.real(arch))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.configs import registry
+        registry.get_config = self.real
+
+
+def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
+    """3k: deepseek-moe-16b at full width (depth 2) and stablelm-1.6b at
+    full width and depth through the train entry, then each new config at
+    reduced width on the card against the CPU. Returns the SignTopK record
+    at the MoE trainer's shape."""
+    import dataclasses
+    import functools
+    import numpy as np
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.sign_topk import BLOCK, sign_topk_blocks
+    from repro_torch.models import attention, moe
+    from repro_torch.configs import registry
+    from repro_torch.dist.sparq_dist import _flatten_spec
+    from repro_torch.models.transformer import param_shapes
+    out = {}
+
+    # which served configs fit: four (n, D_pad) float32 buffers (params,
+    # x_hat, grads, the kernel's q) at the smallest ring, n = 2
+    for arch in registry.ARCH_IDS:
+        d = _flatten_spec(param_shapes(registry.get_config(arch)))[1]
+        gb = 4 * 2 * (-(-d // BLOCK) * BLOCK) * 4 / 1e9
+        log(f"fit: {arch}: D = {d} per node; four (2, D_pad) float32 "
+            f"buffers {gb:.1f} GB of the card's 80")
+
+    # ---- deepseek-moe-16b, full width, one dense and one MoE layer, 4 nodes
+    moe_args = with_arg(with_arg(MAIN_ARGS, "--arch", "deepseek-moe-16b"),
+                        "--nodes", "4")
+    depth2 = ArchRegistry(lambda c: dataclasses.replace(c, n_layers=2))
+    k_b = math.ceil(0.1 * BLOCK)
+    sync_rec = {}
+
+    def on_sync(diff, info):
+        if info["t"] != 5:
+            return
+        # the last sync (step 6, left out of the steady mean): the kernel
+        # timed on this real diff, then one launch at the path's own shape
+        # held against the plain version on every tile, chunk by chunk (a
+        # full copy of the diff would not fit beside the kernel's q). These
+        # launches are a comparison, not the path: the count is restored
+        tiles = diff.view(-1, BLOCK)
+        launches = sign_topk_blocks.launches
+        sync_rec["ms"] = time_ms(
+            torch, lambda: sign_topk_blocks(tiles, None, 1.0, k_b), 3)
+        t0 = time.perf_counter()
+        sync_rec["err"] = parity.check_sign_topk_chunked(
+            tiles, k_b, PLAIN_ROWS, spec="moe trainer diff")
+        torch.cuda.synchronize()
+        sync_rec["check_s"] = time.perf_counter() - t0
+        sign_topk_blocks.launches = launches
+        sync_rec["tiles"] = tiles.shape[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    alloc0 = alloc_counts(torch)
+    with depth2, RouteLog() as routes:
+        result = train.run(moe_args, on_sync=on_sync)
+    alloc1 = alloc_counts(torch)
+    counts["moe_trainer"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    state, step, cfg = result["state"], result["train_step"], result["cfg"]
+    losses, s_step = result["losses"], result["s_per_step"]
+    n = step.n_nodes
+    launches = counts["moe_trainer"]["sign_topk_blocks"]
+    log(f"moe trainer: {cfg.arch_id} n_layers={cfg.n_layers} (first_k_dense "
+        f"{cfg.first_k_dense}), d_model {cfg.d_model}, {cfg.n_experts} "
+        f"experts top-{cfg.moe_top_k} of width {cfg.moe_d_ff}, "
+        f"{cfg.n_shared_experts} shared, vocab {cfg.vocab_size}; D = "
+        f"{step.d_model_total} per node, D_pad {step.d_pad}, n = {n}")
+    if not (cfg.n_layers == 2 and cfg.first_k_dense == 1
+            and cfg.d_model == 2048 and cfg.moe_d_ff == 1408):
+        raise AssertionError("moe trainer: not the full-width config")
+    if len(losses) != 6 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"moe trainer: losses {losses}")
+    if launches != 2 or state["sync_rounds"] != 2:
+        raise AssertionError(f"moe trainer: {launches} SignTopK launches for "
+                             f"{state['sync_rounds']} syncs (want 2)")
+    trig = int(state["triggers"])
+    degs = step.plan.degrees[0]
+    want_bits = float(degs[0]) * (n * state["sync_rounds"]
+                                  + trig * step.payload_bits)
+    got_bits = float(state["bits"])
+    if abs(got_bits - want_bits) > 1e-6 * want_bits or trig <= 0:
+        raise AssertionError(f"moe trainer: bits {got_bits} != reckoned "
+                             f"{want_bits} from {trig} triggers")
+    if state["params"][:, step.d_model_total:].any() or \
+            state["x_hat"][:, step.d_model_total:].any():
+        raise AssertionError("moe trainer: the padded tail is not zero")
+    # routing: per step and node one forward and, under recomputation, one
+    # re-route in the backward, which must give the same table
+    calls = routes.calls
+    if len(calls) != 6 * n * 2:
+        raise AssertionError(f"moe trainer: {len(calls)} route calls, want "
+                             f"{6 * n * 2} (6 steps x {n} nodes x forward "
+                             f"and recomputation)")
+    for si in range(6):
+        dropped, auxs = [], []
+        for i in range(n):
+            (fw, aux, t_count, k), (re, aux_re, _, _) = \
+                calls[(si * n + i) * 2:(si * n + i) * 2 + 2]
+            if not torch.equal(fw, re) or not torch.equal(aux, aux_re):
+                raise AssertionError(f"moe trainer: step {si + 1} node {i}: "
+                                     f"the recomputed routing differs")
+            dropped.append(t_count * k - int((fw < t_count).sum()))
+            auxs.append(float(aux))
+        if not all(math.isfinite(a) for a in auxs):
+            raise AssertionError(f"moe trainer: aux {auxs}")
+        log(f"moe trainer step {si + 1}: loss {losses[si]:.6f}; per node, "
+            f"of {t_count} x {k} choices dropped at capacity "
+            f"{moe.capacity(cfg, t_count)}: {dropped}; aux {auxs}")
+    steady = s_step[1:5]
+    log(f"moe trainer: {launches} SignTopK launches, {trig} triggers, bits "
+        f"{got_bits:.6e} == reckoned {want_bits:.6e}; device peak "
+        f"{peak:.2f} GB")
+    log(f"moe trainer: s/step {[round(v, 4) for v in s_step]}; steps 2..5 "
+        f"(step 6 holds the kernel check) mean {sum(steady) / 4:.4f} s, "
+        f"median {median(steady):.4f} s; allocator during the run "
+        f"{ {k: alloc1[k] - alloc0[k] for k in ALLOC_KEYS} }")
+    rows = sync_rec["tiles"]
+    elements = rows * BLOCK
+    bound_ms = (elements * 8 + rows * 4) / HBM_BYTES_PER_S * 1e3
+    log(f"moe trainer: SignTopK on the last sync's real diff ({rows}, "
+        f"{BLOCK}) f32: {sync_rec['ms']:.4f} ms against the byte bound "
+        f"{bound_ms:.4f} ms ({(elements * 8 + rows * 4) / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"{100 * bound_ms / sync_rec['ms']:.1f}% of its speed); kernel == "
+        f"plain version on every tile, max abs err {sync_rec['err']:.3e} "
+        f"({sync_rec['check_s']:.1f} s)")
+    out.update(moe_ms=sync_rec["ms"], moe_bound_ms=bound_ms,
+               moe_shape=[rows, BLOCK], moe_max_abs_err=sync_rec["err"])
+    # where a step goes: 3 more steps of the same run (t = 6..8, one sync)
+    # under the profiler, after the counts were read; a fresh run's window
+    # would hold the x^0 draw, about 1.5 s of device time
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=128,
+                         batch_per_node=2, n_nodes=n, seed=0)
+
+    def more_steps():
+        st = state
+        for i in range(6, 9):
+            st, _ = step(st, pipe.global_batch(i))
+    dev_s, acts, idle = profiled(torch, more_steps, 3, sum(steady) / 4,
+                                 tables=(("self_device_time_total", 10),))
+    log(f"moe trainer, profiled steps 7..9: device time {dev_s:.4f} s/step "
+        f"over {acts:.0f} device activities/step; against the steady "
+        f"{sum(steady) / 4:.4f} s/step the device is idle {100 * idle:.1f}%")
+    del result, state, step
+    torch.cuda.empty_cache()
+    # the kernel at the same shape on Gaussian tiles, beside the real diff's
+    # time above: the select's work depends on the data
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    x = torch.randn((rows, BLOCK), generator=gen, device=dev)
+    launches = sign_topk_blocks.launches
+    out["moe_randn_ms"] = time_ms(
+        torch, lambda: sign_topk_blocks(x, None, 1.0, k_b), 10)
+    sign_topk_blocks.launches = launches
+    log(f"SignTopK at ({rows}, {BLOCK}) on Gaussian tiles: "
+        f"{out['moe_randn_ms']:.4f} ms against the bound {bound_ms:.4f} ms "
+        f"({100 * bound_ms / out['moe_randn_ms']:.1f}% of its speed)")
+    del x
+    torch.cuda.empty_cache()
+
+    # ---- stablelm-1.6b at full width and depth, 2 nodes, one sync
+    sl_args = with_arg(with_arg(with_arg(MAIN_ARGS, "--arch", "stablelm-1.6b"),
+                                "--nodes", "2"), "--steps", "3")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    result = train.run(sl_args)
+    counts["stablelm_trainer"] = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    state, step, cfg = result["state"], result["train_step"], result["cfg"]
+    losses = result["losses"]
+    trig = int(state["triggers"])
+    if len(losses) != 3 or not all(math.isfinite(v) for v in losses) or \
+            abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"stablelm trainer: losses {losses}")
+    if counts["stablelm_trainer"]["sign_topk_blocks"] != 1 or \
+            state["sync_rounds"] != 1:
+        raise AssertionError(f"stablelm trainer: launches "
+                             f"{counts['stablelm_trainer']}")
+    want_bits = float(step.plan.degrees[0][0]) * (
+        step.n_nodes + trig * step.payload_bits)
+    if abs(float(state["bits"]) - want_bits) > 1e-6 * want_bits:
+        raise AssertionError(f"stablelm trainer: bits {float(state['bits'])}"
+                             f" != reckoned {want_bits}")
+    log(f"stablelm trainer: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.norm}, rope_pct {cfg.rope_pct}, vocab {cfg.vocab_size}; D = "
+        f"{step.d_model_total}, n = {step.n_nodes}; losses {losses}; "
+        f"{trig} triggers, bits {float(state['bits']):.6e} == reckoned; "
+        f"s/step {[round(v, 4) for v in result['s_per_step']]}; device peak "
+        f"{peak:.2f} GB")
+    del result, state, step
+    torch.cuda.empty_cache()
+
+    # ---- the card against the CPU at reduced width, float32 compute and
+    # scores: deepseek-moe-16b at n = 4 for 6 steps, then each new dense
+    # config at d_model 128, vocab 256 for 3 steps
+    chunked = attention.chunked_attention
+    attention.chunked_attention = functools.partial(
+        chunked, score_dtype=torch.float32)
+    try:
+        runs = {}
+        red_args = MAIN_ARGS + ["--reduced"]
+        f32 = ArchRegistry(lambda c: Float32Reduced(c))
+        for where in ("cuda", "cpu"):
+            zero_counts()
+            with f32, RouteLog() as routes:
+                res, syncs = run_logged(train, with_arg(with_arg(
+                    red_args, "--arch", "deepseek-moe-16b"), "--device",
+                    where))
+            runs[where] = (res, syncs, routes.calls, read_counts())
+        (a, sa, ra, ca), (b, sb, rb, _) = runs["cuda"], runs["cpu"]
+        counts["moe_reduced_card"] = ca
+        n = a["train_step"].n_nodes
+        for i in range(n):       # the first step's forward of each node
+            ta, tb = ra[i][0].cpu(), rb[i][0]
+            if not torch.equal(ta, tb):
+                raise AssertionError(
+                    f"reduced moe: node {i}'s first routing differs on the "
+                    f"card; tokens {moe.flipped_tokens(ta, tb, ra[i][2])}")
+        sa_, sb_ = a["state"], b["state"]
+        if (int(sa_["triggers"]), sa_["sync_rounds"], float(sa_["bits"])) \
+                != (int(sb_["triggers"]), sb_["sync_rounds"],
+                    float(sb_["bits"])) or ca["sign_topk_blocks"] != 2:
+            raise AssertionError("reduced moe: card and CPU differ in "
+                                 "triggers, syncs or bits")
+        np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-4,
+                                   err_msg="reduced moe: losses")
+        gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                       b["losses"]))
+        fl = flips_only(sa_, sb_)
+        log(f"reduced deepseek-moe-16b, float32, card == CPU: first routing "
+            f"of all {n} nodes equal ({ra[0][0].numel()} slots each), "
+            f"{int(sa_['triggers'])} triggers, {sa_['sync_rounds']} syncs, "
+            f"bits {float(sa_['bits']):.6e}; losses {a['losses']} (CPU "
+            f"{b['losses']}), largest relative gap {gap:.3e}; x_hat beyond "
+            f"5e-4 on {fl['xhat_far']} entries in {fl['flip_tiles']} of "
+            f"{fl['tiles']} tiles; params gap {fl['params_gap']:.3e}, "
+            f"{fl['params_gap_rest']:.3e} outside flipped columns")
+        del runs, a, b, sa_, sb_
+        small = ArchRegistry(lambda c: Float32Reduced(c, d_model=128,
+                                                      vocab=256))
+        zero_counts()
+        for arch in ("minitron-4b", "stablelm-1.6b", "qwen1.5-32b",
+                     "musicgen-large", "chameleon-34b"):
+            got = {}
+            for where in ("cuda", "cpu"):
+                with small:
+                    r = train.run(with_arg(with_arg(with_arg(
+                        red_args, "--arch", arch), "--device", where),
+                        "--steps", "3"))
+                got[where] = (r["losses"], int(r["state"]["triggers"]),
+                              float(r["state"]["bits"]), r["cfg"])
+            (la, ta, ba, c), (lb, tb, bb, _) = got["cuda"], got["cpu"]
+            if (ta, ba) != (tb, bb):
+                raise AssertionError(f"reduced {arch}: card and CPU differ "
+                                     f"in triggers or bits")
+            np.testing.assert_allclose(la, lb, rtol=1e-4,
+                                       err_msg=f"reduced {arch}: losses")
+            log(f"reduced {arch} (d_model {c.d_model}, vocab "
+                f"{c.vocab_size}, {c.norm}, {c.act}, rope_pct "
+                f"{c.rope_pct}, qk_norm {c.qk_norm}, param_dtype "
+                f"{c.param_dtype}), float32, card == CPU: losses {la} (CPU "
+                f"{lb}), largest relative gap "
+                f"{max(abs(x - y) / abs(y) for x, y in zip(la, lb)):.3e}")
+        counts["dense_reduced_card"] = read_counts()
+    finally:
+        attention.chunked_attention = chunked
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -881,14 +1210,23 @@ def main() -> int:
         raise AssertionError("small engine: bit totals differ")
     log(f"small engine, CUDA kernel path == plain CPU path over 4 steps "
         f"(max |params| diff {small_err:.3e}, triggers {int(a['triggers'])})")
+    log(f"phases 1-2: {time.perf_counter() - t_all:.1f} s")
+    t_p = time.perf_counter()
     del out, a, b
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 3. main path
+    # the profiled steps below keep their sync's diff: the kernel's real
+    # input on the main path (one 9.9 GB device copy, in the profiled time)
+    captured, capturing = [], []
+
+    def keep_diff(diff, info):
+        if capturing:
+            captured.append(diff.clone())
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     alloc0 = alloc_counts(torch)
-    result = train.run(MAIN_ARGS)
+    result = train.run(MAIN_ARGS, on_sync=keep_diff)
     alloc1 = alloc_counts(torch)
     counts["train"] = read_counts()
     launches = counts["train"]["sign_topk_blocks"]
@@ -927,39 +1265,53 @@ def main() -> int:
     log(f"main path: peak memory allocated {peak_gb:.2f} GB")
 
     k_b_main = step.k_b
-    del result, state, step
-    torch.cuda.empty_cache()
 
-    # where a step's time goes: one more run of the main path (3 steps, one
-    # sync) under torch.profiler, after the counts were read. Device time is
-    # summed over the kernels themselves; the idle share compares it with
-    # the un-profiled steady wall time above (the profiler slows the host).
-    # Its sync's diff, the kernel's real input on the main path, is kept
-    # (one 9.9 GB device copy, in the profiled time) to check the kernel on
-    prof_args = with_arg(MAIN_ARGS, "--steps", "3")
-    captured = []
+    # where a step's time goes: 3 more steps of the same run (t = 6..8, one
+    # sync) under torch.profiler, after the counts were read (a fresh run's
+    # window would hold the x^0 draw). Device time is summed over the
+    # kernels themselves; the idle share compares it with the un-profiled
+    # steady wall time above (the profiler slows the host)
+    from repro_torch.data.synthetic import TokenPipeline
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=128,
+                         batch_per_node=2, n_nodes=n_nodes, seed=0)
+
+    def more_steps():
+        st = state
+        capturing.append(True)
+        for i in range(6, 9):
+            st, _ = step(st, pipe.global_batch(i))
+        capturing.clear()
     steady = sum(s_step[1:]) / len(s_step[1:])
     device_s, launches_per_step, idle = profiled(
-        torch, lambda: train.run(prof_args, on_sync=lambda diff, info:
-                                 captured.append(diff.clone())), 3, steady,
+        torch, more_steps, 3, steady,
         tables=(("self_device_time_total", 12), ("self_cpu_time_total", 8)))
-    log(f"profiled 3 steps: device time {device_s:.4f} s/step over "
+    log(f"profiled steps 7..9: device time {device_s:.4f} s/step over "
         f"{launches_per_step:.0f} kernels/step; against the steady "
         f"{steady:.4f} s/step the device is idle {100 * idle:.1f}% of the "
         f"time")
+    del result, state, step
+    torch.cuda.empty_cache()
 
     if len(captured) != 1 or captured[0].shape != (n_nodes, d_pad):
-        raise AssertionError("profiled run: expected one sync's (n, D_pad) "
+        raise AssertionError("profiled steps: expected one sync's (n, D_pad) "
                              "diff")
     diff_tiles = captured.pop().view(-1, BLOCK)
+    # the kernel's time on this real diff, beside the Gaussian tiles' above:
+    # the select's work depends on the data
+    real_ms = time_ms(torch, lambda: sign_topk_blocks(diff_tiles, None, 1.0,
+                                                      k_b_main), 10)
+    log(f"kernel on the profiled sync's real diff: {real_ms:.4f} ms "
+        f"({100 * bound_ms / real_ms:.1f}% of the bound's speed)")
     real_err = parity.check_sign_topk_chunked(diff_tiles, k_b_main,
                                               PLAIN_ROWS,
                                               spec="main-path diff")
     max_err = max(max_err, real_err)
-    log(f"kernel == plain version on every tile of the first sync's diff "
+    log(f"kernel == plain version on every tile of the profiled sync's diff "
         f"({diff_tiles.shape[0]} tiles): max abs err {real_err:.3e}")
     del diff_tiles
     torch.cuda.empty_cache()
+    log(f"phase 3a: {time.perf_counter() - t_p:.1f} s")
+    t_p = time.perf_counter()
 
     # ------------------- 3b. the faulty, time-varying trainer at full width
     from repro_torch.core import topology as topo_mod
@@ -1037,16 +1389,36 @@ def main() -> int:
     log(step_times("faulty trainer", f_step_s, alloc0, alloc1))
     del result, state, step
     torch.cuda.empty_cache()
+    # where a faulty step goes, at full width and depth 6 of 24: the
+    # profiler's host cost grows with the launches (a 24-layer window took
+    # about 100 s of the smoke). An unprofiled depth-6 run of 4 steps gives
+    # the wall time, and its steps t = 4..6 (one sync) are profiled; a
+    # fresh run's window would hold the x^0 draw
+    from repro_torch.data.synthetic import TokenPipeline
+    with ArchRegistry(lambda c: dataclasses.replace(c, n_layers=6)):
+        d6 = train.run(with_arg(FAULT_ARGS, "--steps", "4"))
+    d6_state, d6_step = d6["state"], d6["train_step"]
+    d6_wall = d6["s_per_step"][1:]
+    d6_pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=128,
+                            batch_per_node=2, n_nodes=n_nodes, seed=0)
+
+    def d6_steps():
+        st = d6_state
+        for i in range(4, 7):
+            st, _ = d6_step(st, d6_pipe.global_batch(i))
+    f_steady6 = sum(d6_wall) / len(d6_wall)
     f_device_s, f_acts, f_idle = profiled(
-        torch, lambda: train.run(with_arg(FAULT_ARGS, "--steps", "3")), 3,
-        f_steady, tables=(("self_device_time_total", 8),))
-    f_median = median(f_step_s[1:])
-    log(f"faulty trainer, profiled 3 steps: device time {f_device_s:.4f} "
-        f"s/step over {f_acts:.0f} kernels/step; idle {100 * f_idle:.1f}% "
-        f"against the steady mean {f_steady:.4f} s/step, "
-        f"{100 * (1 - f_device_s / f_median):.1f}% against the median "
-        f"{f_median:.4f} s")
+        torch, d6_steps, 3, f_steady6,
+        tables=(("self_device_time_total", 8),))
+    log(f"faulty trainer at depth 6: s/step "
+        f"{[round(v, 4) for v in d6['s_per_step']]}; profiled steps 5..7: "
+        f"device time {f_device_s:.4f} s/step over "
+        f"{f_acts:.0f} kernels/step; idle {100 * f_idle:.1f}% against the "
+        f"depth-6 steady mean {f_steady6:.4f} s/step (steps 2..4)")
+    del d6, d6_state, d6_step
     torch.cuda.empty_cache()
+    log(f"phase 3b: {time.perf_counter() - t_p:.1f} s")
+    t_p = time.perf_counter()
 
     # ------------- 3c. the same flags at reduced width, the card against CPU
     red = {}
@@ -1081,6 +1453,8 @@ def main() -> int:
         f"{fl['params_gap_rest']:.3e} outside the {fl['flip_cols']} flipped "
         f"columns")
     del red, a, b
+    log(f"phase 3c: {time.perf_counter() - t_p:.1f} s")
+    t_p = time.perf_counter()
 
     # ------------------------------- 3d. the generic path at full width
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1120,6 +1494,7 @@ def main() -> int:
     log(step_times("generic path", g_step_s, alloc0, alloc1))
     del result, state, step
     torch.cuda.empty_cache()
+    log(f"phase 3d: {time.perf_counter() - t_p:.1f} s")
 
     # ------------------------------------------------ 3e. the kernel suite
     t_p = time.perf_counter()
@@ -1360,6 +1735,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(torch, dev, *args, counts, zero_counts, read_counts)
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    # ------------------ 3k. the MoE family and the new dense configs
+    t0 = time.perf_counter()
+    moe_rec = phase_archs(torch, dev, train, counts, zero_counts, read_counts)
+    max_err = max(max_err, moe_rec["moe_max_abs_err"])
+    log(f"phase 3k: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------- 4. report
     def by_path(name):
@@ -1375,7 +1755,11 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": None,
         "plain_tiles_per_call": PLAIN_ROWS,
         "topk_selection_only_ms": topk_ms,
-        "shape": [rows, BLOCK], "k_b": k_b}, {
+        "shape": [rows, BLOCK], "k_b": k_b, "main_path_diff_ms": real_ms,
+        "moe_trainer_shape": moe_rec["moe_shape"],
+        "moe_trainer_ms": moe_rec["moe_ms"],
+        "moe_trainer_bound_ms": moe_rec["moe_bound_ms"],
+        "moe_trainer_shape_gaussian_ms": moe_rec["moe_randn_ms"]}, {
         "name": "qsgd_blocks", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qsgd.cu",
         "replaces": "src/repro/kernels/qsgd.py:41",

@@ -220,27 +220,34 @@ def unravel(flat: torch.Tensor, slices: Tuple[Slice, ...]) -> Dict[str, Any]:
 
 
 def grad_views(row: torch.Tensor, grad_row: torch.Tensor,
-               slices: Tuple[Slice, ...], n_layers: int) -> Dict[str, Any]:
+               slices: Tuple[Slice, ...],
+               dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """One node's model tree for a backward pass: detached views of ``row``
     that require grad, each with the matching view of ``grad_row`` as its
-    ``.grad``, so backward accumulates straight into ``grad_row``. The stack
-    ``seg0`` is one tree per layer, so that backward never materializes a
-    zero gradient of the whole stack per layer."""
+    ``.grad``, so backward accumulates straight into ``grad_row``. Each
+    stack ``seg{i}`` is one tree per layer, so that backward never
+    materializes a zero gradient of the whole stack per layer.
+
+    With a ``dtype`` other than float32 (a bfloat16 ``param_dtype``) the
+    tree holds each view cast to it, as the reference's ``unravel`` casts
+    each leaf (``sparq_dist.py:284-288``): the loss reads the rounded
+    weights and the gradient comes back through the cast."""
     def leaf(lo: int, size: int, shape) -> torch.Tensor:
         out = row[lo:lo + size].view(shape).detach()
         out.requires_grad_(True)
         out.grad = grad_row[lo:lo + size].view(shape)
-        return out
+        return out if dtype == torch.float32 else out.to(dtype)
 
-    tree: Dict[str, Any] = {"seg0": [{} for _ in range(n_layers)]}
+    tree: Dict[str, Any] = {}
     for path, off, size, shape in slices:
-        if path[0] != "seg0":
+        if not path[0].startswith("seg"):
             _set(tree, path, leaf(off, size, shape))
             continue
+        n_layers = shape[0]
+        layers = tree.setdefault(path[0], [{} for _ in range(n_layers)])
         per = size // n_layers
         for li in range(n_layers):
-            _set(tree["seg0"][li], path[1:],
-                 leaf(off + li * per, per, shape[1:]))
+            _set(layers[li], path[1:], leaf(off + li * per, per, shape[1:]))
     return tree
 
 
@@ -283,6 +290,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     opt = dcfg.resolved_optimizer()
     H, mbs = int(dcfg.H), int(dcfg.microbatches)
     xhat_dt = dtype_of(dcfg.xhat_dtype)
+    param_dt = dtype_of(cfg.param_dtype)
     k_b = (comp_eff._k_b() if isinstance(comp_eff, BlockTopFrac)
            else max(1, min(BLOCK, int(math.ceil(dcfg.frac * BLOCK)))))
     if dcfg.variant not in ("dense", "ring", "shift"):
@@ -350,7 +358,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
                              f"microbatches {mbs}")
         m = per // mbs
         for i in range(n):
-            tree = grad_views(params[i], grads[i], slices, cfg.n_layers)
+            tree = grad_views(params[i], grads[i], slices, param_dt)
             for j in range(mbs):
                 sub = {k: v[i, j * m:(j + 1) * m] for k, v in batch.items()}
                 loss = lm_loss(cfg, tree, sub)[0]

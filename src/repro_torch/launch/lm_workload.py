@@ -58,7 +58,7 @@ def make_lm_workload(quick: bool = True, device: str = "cuda") -> LMWorkload:
         g = torch.zeros_like(x_nd)
         with torch.enable_grad():
             for i in range(n):
-                tree = grad_views(x_nd[i], g[i], slices, cfg.n_layers)
+                tree = grad_views(x_nd[i], g[i], slices)
                 lm_loss(cfg, tree, batches[i])[0].backward()
         return g
 

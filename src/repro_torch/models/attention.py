@@ -1,6 +1,7 @@
 """Causal GQA attention for training (counterpart of the dense part of
-``repro/models/attention.py``): the QKV projections with their bias, the
-memory-linear chunked attention, and the causal-parts split.
+``repro/models/attention.py``): the QKV projections with their bias and
+per-head qk-norm, the memory-linear chunked attention, and the causal-parts
+split.
 
 ``chunked_attention`` is plain PyTorch with the reference's numerics, not
 ``scaled_dot_product_attention``: scores and softmax weights in bfloat16,
@@ -16,7 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dtype_of
+from repro_torch.models.layers import apply_rope, dtype_of, rms_norm_vec
 
 Params = Dict[str, torch.Tensor]
 
@@ -38,7 +39,7 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
     k = k.reshape(b, s, kv, hd)
     v = v.reshape(b, s, kv, hd)
     if cfg.qk_norm:
-        raise NotImplementedError("qk-norm (chameleon) is not ported yet")
+        q, k = rms_norm_vec(q), rms_norm_vec(k)
     return q, k, v
 
 

@@ -3,7 +3,7 @@
 Re-declared here because importing ``repro.models.config`` runs
 ``repro/models/__init__.py``, which imports jax. The fields, defaults and
 ``reduced()`` are the reference's, so a configuration means the same thing
-in both packages; the port's model code runs the dense family only.
+in both packages; the port's model code runs the dense and MoE families.
 """
 from __future__ import annotations
 

@@ -58,6 +58,14 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def rms_norm_vec(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Scale-free RMS norm over the last dim, in float32 and cast back
+    (chameleon's per-head qk-norm)."""
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype)
+
+
 # ---------------------------------------------------------------- rope
 
 def rope_frequencies(head_dim: int, rope_pct: float, theta: float,

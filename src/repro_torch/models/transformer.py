@@ -1,20 +1,24 @@
-"""Dense-family model assembly and loss (counterpart of the dense parts of
+"""Model assembly and loss for the dense and MoE families (counterpart of
 ``repro/models/transformer.py``).
 
+A model is a sequence of homogeneous segments (:func:`segments`), each a
+stack of identical blocks: the dense family is ``[("dense", L)]``, the MoE
+family ``[("dense", first_k_dense), ("moe", L - first_k_dense)]``.
 Parameters are nested dicts of tensors with the reference's tree: ``embed``
-{``embedding``, ``lm_head``}, ``final_norm`` {``scale``}, and ``seg0``
-holding the ``n_layers`` blocks stacked on a leading axis (``attn`` {wq, wk,
-wv, wo, bq, bk, bv}, ``mlp`` {w_in, w_gate, w_out}, ``norm1``, ``norm2``).
-The reference scans over the stack; here a Python loop walks it, and with
-``cfg.remat`` each block runs under ``torch.utils.checkpoint``, as
-``jax.checkpoint`` wraps the scan body (``transformer.py:179``).
+{``embedding``, ``lm_head``}, ``final_norm`` {``scale``, ``bias``}, and
+``seg{i}`` holding segment i's blocks stacked on a leading axis (``attn``
+{wq, wk, wv, wo, bq, bk, bv}, ``mlp`` {w_in, w_gate, w_out} or ``moe``
+(:mod:`repro_torch.models.moe`), ``norm1``, ``norm2``). The reference scans
+over each stack; here a Python loop walks it, and with ``cfg.remat`` each
+block runs under ``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps the
+scan body (``transformer.py:179``).
 
-MoE, SSM, hybrid, MLA, MTP and decoding are not ported yet.
+SSM, hybrid, MLA, MTP and decoding are not ported yet.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        dtype_of, embed_tokens, lm_logits)
@@ -30,74 +35,111 @@ Params = Dict[str, Any]
 LOSS_CHUNK = 256  # sequence chunk for the streamed cross-entropy
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "audio", "vlm") or cfg.use_mla
-            or cfg.use_mtp or cfg.n_experts):
+def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """The (kind, n_layers) of each stacked segment ``seg{i}``."""
+    if cfg.family == "moe":
+        segs = [("dense", cfg.first_k_dense)] if cfg.first_k_dense else []
+        return segs + [("moe", cfg.n_layers - cfg.first_k_dense)]
+    return [("dense", cfg.n_layers)]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    waiting = [name for name, hit in (
+        ("SSM", cfg.family == "ssm"), ("hybrid", cfg.family == "hybrid"),
+        ("MLA", cfg.use_mla), ("MTP", cfg.use_mtp)) if hit]
+    if waiting:
         raise NotImplementedError(
-            f"{cfg.arch_id}: only the dense family is ported (ROADMAP.md, "
-            f"remaining models: MoE, SSM, hybrid, MLA, MTP)")
+            f"{cfg.arch_id}: {', '.join(waiting)} not ported yet (ROADMAP.md "
+            f"A.11; the port runs the dense and MoE families)")
+
+
+def _block_shapes(cfg: ModelConfig, kind: str, L: int) -> Params:
+    """One segment's leaves, each with the leading stack axis ``L``."""
+    d, f = cfg.d_model, cfg.d_ff
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    a = {"wq": (L, d, h * hd), "wk": (L, d, kv * hd), "wv": (L, d, kv * hd),
+         "wo": (L, h * hd, d)}
+    if cfg.qkv_bias:
+        a.update(bq=(L, h * hd), bk=(L, kv * hd), bv=(L, kv * hd))
+    norm = {"scale": (L, d)}
+    if cfg.norm == "layernorm":
+        norm["bias"] = (L, d)
+    out = {"attn": a, "norm1": dict(norm), "norm2": dict(norm)}
+    if kind == "moe":
+        out["moe"] = {k: (L,) + v for k, v in moe.param_shapes(cfg).items()}
+    else:
+        out["mlp"] = {"w_in": (L, d, f), "w_out": (L, f, d)}
+        if cfg.act == "swiglu":
+            out["mlp"]["w_gate"] = (L, d, f)
+    return out
 
 
 def param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree as nested dicts of shapes (the reference's
     ``jax.eval_shape(init_params)``)."""
-    _check_dense(cfg)
-    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    _check_ported(cfg)
+    d = cfg.d_model
     embed = {"embedding": (cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
         embed["lm_head"] = (d, cfg.vocab_size)
-    a = {"wq": (L, d, h * hd), "wk": (L, d, kv * hd), "wv": (L, d, kv * hd),
-         "wo": (L, h * hd, d)}
-    if cfg.qkv_bias:
-        a.update(bq=(L, h * hd), bk=(L, kv * hd), bv=(L, kv * hd))
-    mlp = {"w_in": (L, d, f), "w_out": (L, f, d)}
-    if cfg.act == "swiglu":
-        mlp["w_gate"] = (L, d, f)
-    norm = {"scale": (L, d)}
+    top_norm = {"scale": (d,)}
     if cfg.norm == "layernorm":
-        norm["bias"] = (L, d)
-    top_norm = {k: v[1:] for k, v in norm.items()}
-    return {"embed": embed, "final_norm": top_norm,
-            "seg0": {"attn": a, "mlp": mlp, "norm1": dict(norm),
-                     "norm2": dict(norm)}}
+        top_norm["bias"] = (d,)
+    out = {"embed": embed, "final_norm": top_norm}
+    for si, (kind, n) in enumerate(segments(cfg)):
+        out[f"seg{si}"] = _block_shapes(cfg, kind, n)
+    return out
 
 
 def init_keys(cfg: ModelConfig, key: torch.Tensor
               ) -> Dict[Tuple[str, ...], torch.Tensor]:
     """The reference's threefry key of every drawn leaf, hashed on the host:
     ``split(key, 8)``; the embedding and LM head from ``split(keys[0])``;
-    the stacked layers from ``split(fold_in(keys[2], 0), n_layers)``, each
-    block ``split(k, 6)`` with the attention in ``split(ks[2], 4)`` and the
-    MLP in ``split(ks[3], 3)``. A stacked leaf's entry holds one key per
-    layer, (n_layers, 2)."""
-    _check_dense(cfg)
+    segment i's layers from ``split(fold_in(keys[2], i), n_i)``, each block
+    ``split(k, 6)`` with the attention in ``split(ks[2], 4)`` and the MLP in
+    ``split(ks[3], 3)`` or the MoE in ``split(ks[3], 7)``. A stacked leaf's
+    entry holds one key per layer, (n_i, 2)."""
+    _check_ported(cfg)
     keys = prng.split(key.cpu(), 8)
     k_embed = prng.split(keys[0])
     out = {("embed", "embedding"): k_embed[0]}
     if not cfg.tie_embeddings:
         out[("embed", "lm_head")] = k_embed[1]
-    blocks = prng.split(prng.split(prng.fold_in(keys[2], 0), cfg.n_layers), 6)
-    ka, km = prng.split(blocks[:, 2], 4), prng.split(blocks[:, 3], 3)
-    for i, name in enumerate(("wq", "wk", "wv", "wo")):
-        out[("seg0", "attn", name)] = ka[:, i]
-    for i, name in enumerate(("w_in", "w_gate", "w_out")):
-        if name != "w_gate" or cfg.act == "swiglu":
-            out[("seg0", "mlp", name)] = km[:, i]
+    for si, (kind, n) in enumerate(segments(cfg)):
+        seg = f"seg{si}"
+        blocks = prng.split(prng.split(prng.fold_in(keys[2], si), n), 6)
+        ka = prng.split(blocks[:, 2], 4)
+        for i, name in enumerate(("wq", "wk", "wv", "wo")):
+            out[(seg, "attn", name)] = ka[:, i]
+        if kind == "moe":
+            for name, k in moe.init_keys(cfg, blocks[:, 3]).items():
+                out[(seg, "moe", name)] = k
+            continue
+        km = prng.split(blocks[:, 3], 3)
+        for i, name in enumerate(("w_in", "w_gate", "w_out")):
+            if name != "w_gate" or cfg.act == "swiglu":
+                out[(seg, "mlp", name)] = km[:, i]
     return out
+
+
+def _init_scale(cfg: ModelConfig, path: Tuple[str, ...]) -> float:
+    if "moe" in path:
+        return moe.init_scale(cfg, path[-1])
+    return 0.02 / math.sqrt(2 * cfg.n_layers) if path[-1] == "wo" else 0.02
 
 
 def init_params(cfg: ModelConfig, key: torch.Tensor,
                 out: Optional[Params] = None) -> Params:
     """The reference's ``init_params(cfg, key)``: the leaves of
-    :func:`init_keys` drawn with ``dense_init`` (``wo`` at 0.02/sqrt(2L),
-    every other matrix at 0.02), norm scales 1, biases 0.
+    :func:`init_keys` drawn with ``dense_init`` (``wo`` and the MoE output
+    projections at 0.02/sqrt(2L), every other matrix at 0.02), norm scales
+    1, biases 0.
 
     Without ``out`` the weights land on the key's device; with ``out``, a
     tree of tensors of :func:`param_shapes` (e.g. views of one row of a flat
     buffer), each layer's draw is written into its slice of the stacked leaf
     and ``out`` is returned."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dt = dtype_of(cfg.param_dtype)
     if out is None:
         def empty(tree):
@@ -110,16 +152,15 @@ def init_params(cfg: ModelConfig, key: torch.Tensor,
             leaf.fill_(1.0)
         elif path[-1] in ("bias", "bq", "bk", "bv"):
             leaf.zero_()
-    wo_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     for path, k in init_keys(cfg, key).items():
         leaf = out
         for p in path:
             leaf = leaf[p]
-        scale = wo_scale if path[-1] == "wo" else 0.02
-        if path[0] != "seg0":
+        scale = _init_scale(cfg, path)
+        if not path[0].startswith("seg"):
             dense_init(k, tuple(leaf.shape), dt, scale, out=leaf)
             continue
-        for li in range(cfg.n_layers):
+        for li in range(leaf.shape[0]):
             dense_init(k[li], tuple(leaf.shape[1:]), dt, scale, out=leaf[li])
     return out
 
@@ -167,27 +208,62 @@ def _dense_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
     return x + apply_mlp(cfg, bp["mlp"], h2)
 
 
-def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor
-                   ) -> torch.Tensor:
-    """Backbone forward. tokens: (B, S) int -> final-normed hidden (B, S, D)
-    in the compute dtype."""
-    _check_dense(cfg)
-    x = embed_tokens(cfg, params["embed"], tokens)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
-    seg = params["seg0"]
-    # seg0 is the stacked tree, or a list of per-layer trees (the flat
-    # engine's: one leaf per layer, so that backward never materializes a
-    # zero gradient of the whole stack per layer)
-    blocks = (seg if isinstance(seg, (list, tuple))
-              else [_layer(seg, i) for i in range(cfg.n_layers)])
-    for bp in blocks:
-        if cfg.remat:
-            x = checkpoint(_dense_block, cfg, bp, x, positions,
-                           use_reentrant=False)
-        else:
-            x = _dense_block(cfg, bp, x, positions)
-    return apply_norm(cfg, params["final_norm"], x)
+def _moe_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = apply_norm(cfg, bp["norm1"], x)
+    x = x + attn.attention_forward(cfg, bp["attn"], h, positions)
+    h2 = apply_norm(cfg, bp["norm2"], x)
+    y, aux = moe.moe_forward(cfg, bp["moe"], h2)
+    return x + y, aux
+
+
+def forward_hidden(cfg: ModelConfig, params: Params,
+                   tokens: Optional[torch.Tensor] = None,
+                   embeds: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backbone forward. tokens: (B, S) int, or ``embeds`` (B, S, D)
+    precomputed frontend embeddings (the audio and VLM configs' stub) ->
+    (final-normed hidden (B, S, D) in the compute dtype, the MoE layers'
+    summed aux loss, float32)."""
+    _check_ported(cfg)
+    if embeds is not None:
+        x = embeds.to(dtype_of(cfg.compute_dtype))
+    else:
+        x = embed_tokens(cfg, params["embed"], tokens)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for si, (kind, n) in enumerate(segments(cfg)):
+        seg = params[f"seg{si}"]
+        # a stacked tree, or a list of per-layer trees (the flat engine's:
+        # one leaf per layer, so that backward never materializes a zero
+        # gradient of the whole stack per layer)
+        blocks = (seg if isinstance(seg, (list, tuple))
+                  else [_layer(seg, i) for i in range(n)])
+        block = _moe_block if kind == "moe" else _dense_block
+        auxs = []
+        for bp in blocks:
+            if cfg.remat:
+                out = checkpoint(block, cfg, bp, x, positions,
+                                 use_reentrant=False)
+            else:
+                out = block(cfg, bp, x, positions)
+            if kind == "moe":
+                x, aux = out
+                auxs.append(aux)
+            else:
+                x = out
+        if auxs:
+            aux_total = aux_total + torch.stack(auxs).sum()
+    return apply_norm(cfg, params["final_norm"], x), aux_total
+
+
+def forward(cfg: ModelConfig, params: Params,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward with the LM head: -> (logits (B, S, V), aux)."""
+    h, aux = forward_hidden(cfg, params, tokens, embeds=embeds)
+    return lm_logits(cfg, params["embed"], h), aux
 
 
 def _ce_sum(cfg: ModelConfig, embed_params: Params, h: torch.Tensor,
@@ -218,7 +294,13 @@ def chunked_ce(cfg: ModelConfig, embed_params: Params, h: torch.Tensor,
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Mapping[str, Any]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE. batch: tokens (B, S), labels (B, S)."""
-    hidden = forward_hidden(cfg, params, batch["tokens"])
+    """Next-token CE, plus ``router_aux_coef * aux`` for a MoE config.
+    batch: tokens (B, S) or embeds (B, S, D), and labels (B, S)."""
+    hidden, aux = forward_hidden(cfg, params, batch.get("tokens"),
+                                 embeds=batch.get("embeds"))
     loss = chunked_ce(cfg, params["embed"], hidden, batch["labels"])
-    return loss, {"ce": loss, "loss": loss}
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_coef * aux
+    metrics["loss"] = loss
+    return loss, metrics

@@ -214,6 +214,16 @@ def test_remat_changes_nothing():
 
 
 def test_unported_families_raise():
+    """The MoE family is ported; the SSM, hybrid, MLA and MTP blocks are
+    not, and every model entry refuses them."""
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError):
-        ttf.param_shapes(dataclasses.replace(tc, family="moe", n_experts=4))
+    for kw in (dict(family="ssm", ssm_state=16),
+               dict(family="hybrid", ssm_state=16, attn_every=2),
+               dict(use_mla=True), dict(use_mtp=True)):
+        c = dataclasses.replace(tc, **kw)
+        for fn in (ttf.param_shapes, lambda c: ttf.init_keys(
+                c, torch.zeros(2, dtype=torch.int64))):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                fn(c)
+    ttf.param_shapes(dataclasses.replace(tc, family="moe", n_experts=4,
+                                         moe_top_k=2, moe_d_ff=64))
