@@ -78,6 +78,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       1e-4, x_hat and params up to boundary flips) and minitron-4b,
       stablelm-1.6b, qwen1.5-32b, musicgen-large and chameleon-34b at
       d_model 128, vocab 256 for 3 steps (losses within 1e-4);
+   l. the SSM family and the hybrid: mamba2-370m at full width and depth
+      (48 layers, d_model 1024, 32 SSM heads of 64, state 128, vocab
+      50,280), 8 nodes, and zamba2-7b at full width (d_model 3584, 112 SSM
+      heads, state 64, 32 attention heads, d_ff 14,336) cut to 12 layers,
+      so that its shared attention block runs after layers 5 and 11, 3
+      nodes; the main path's flags through the train entry: SignTopK
+      twice, bits against the reckoning, the shared block's uses counted,
+      the kernel timed on the last sync's real diff and held against its
+      plain version on every tile of it chunk by chunk; mamba2-370m at
+      depth 6 profiled for its idle share; then both at reduced width in
+      float32 on the card against the CPU for 6 steps (x^0 within 4 ulps,
+      losses within 1e-4, x_hat and params up to boundary flips);
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -741,6 +753,45 @@ class ArchRegistry:
         registry.get_config = self.real
 
 
+def sign_topk_bound_ms(rows) -> float:
+    """SignTopK's byte bound at (rows, 1024) float32 in ensemble mode: the
+    diff read once, q and the per-tile scale written once."""
+    return (rows * 1024 * 8 + rows * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def sync_kernel_check(torch, t_check, spec):
+    """An ``on_sync`` hook for the train entry, and the record it fills. At
+    the sync of step index ``t_check`` SignTopK is timed on the real diff,
+    then one launch at the path's own shape is held against the plain
+    version on every tile, chunk by chunk (a full copy of the diff would
+    not fit beside the kernel's q). These launches are a comparison, not
+    the path: the count is restored. ``hook_s`` is the hook's host time,
+    which the step that holds it gives back."""
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.sign_topk import BLOCK, sign_topk_blocks
+    k_b = math.ceil(0.1 * BLOCK)
+    rec = {}
+
+    def hook(diff, info):
+        if info["t"] != t_check:
+            return
+        torch.cuda.synchronize()
+        t_hook = time.perf_counter()
+        tiles = diff.view(-1, BLOCK)
+        launches = sign_topk_blocks.launches
+        rec["ms"] = time_ms(
+            torch, lambda: sign_topk_blocks(tiles, None, 1.0, k_b), 3)
+        t0 = time.perf_counter()
+        rec["err"] = parity.check_sign_topk_chunked(tiles, k_b, PLAIN_ROWS,
+                                                    spec=spec)
+        torch.cuda.synchronize()
+        rec["check_s"] = time.perf_counter() - t0
+        sign_topk_blocks.launches = launches
+        rec["tiles"] = tiles.shape[0]
+        rec["hook_s"] = time.perf_counter() - t_hook
+    return hook, rec
+
+
 def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
     """3k: deepseek-moe-16b at full width (depth 2) and stablelm-1.6b at
     full width and depth through the train entry, then each new config at
@@ -750,7 +801,6 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
     import functools
     import numpy as np
     from repro_torch.data.synthetic import TokenPipeline
-    from repro_torch.kernels import parity
     from repro_torch.kernels.sign_topk import BLOCK, sign_topk_blocks
     from repro_torch.models import attention, moe
     from repro_torch.configs import registry
@@ -771,27 +821,8 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
                         "--nodes", "4")
     depth2 = ArchRegistry(lambda c: dataclasses.replace(c, n_layers=2))
     k_b = math.ceil(0.1 * BLOCK)
-    sync_rec = {}
-
-    def on_sync(diff, info):
-        if info["t"] != 5:
-            return
-        # the last sync (step 6, left out of the steady mean): the kernel
-        # timed on this real diff, then one launch at the path's own shape
-        # held against the plain version on every tile, chunk by chunk (a
-        # full copy of the diff would not fit beside the kernel's q). These
-        # launches are a comparison, not the path: the count is restored
-        tiles = diff.view(-1, BLOCK)
-        launches = sign_topk_blocks.launches
-        sync_rec["ms"] = time_ms(
-            torch, lambda: sign_topk_blocks(tiles, None, 1.0, k_b), 3)
-        t0 = time.perf_counter()
-        sync_rec["err"] = parity.check_sign_topk_chunked(
-            tiles, k_b, PLAIN_ROWS, spec="moe trainer diff")
-        torch.cuda.synchronize()
-        sync_rec["check_s"] = time.perf_counter() - t0
-        sign_topk_blocks.launches = launches
-        sync_rec["tiles"] = tiles.shape[0]
+    # the kernel check at the last sync (step 6, left out of the steady mean)
+    on_sync, sync_rec = sync_kernel_check(torch, 5, "moe trainer diff")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
@@ -861,7 +892,7 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
         f"{ {k: alloc1[k] - alloc0[k] for k in ALLOC_KEYS} }")
     rows = sync_rec["tiles"]
     elements = rows * BLOCK
-    bound_ms = (elements * 8 + rows * 4) / HBM_BYTES_PER_S * 1e3
+    bound_ms = sign_topk_bound_ms(rows)
     log(f"moe trainer: SignTopK on the last sync's real diff ({rows}, "
         f"{BLOCK}) f32: {sync_rec['ms']:.4f} ms against the byte bound "
         f"{bound_ms:.4f} ms ({(elements * 8 + rows * 4) / 1e9:.2f} GB at "
@@ -1007,6 +1038,211 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
                 f"{lb}), largest relative gap "
                 f"{max(abs(x - y) / abs(y) for x, y in zip(la, lb)):.3e}")
         counts["dense_reduced_card"] = read_counts()
+    finally:
+        attention.chunked_attention = chunked
+    torch.cuda.empty_cache()
+    return out
+
+
+class SharedLog:
+    """Counts the hybrid layers that apply the shared attention block while
+    installed: the forward's and the recomputation's."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.real, self.calls = transformer._hybrid_block, 0
+
+        def block(cfg, bp, x, positions, shared):
+            self.calls += shared is not None
+            return self.real(cfg, bp, x, positions, shared)
+        transformer._hybrid_block = block
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer._hybrid_block = self.real
+
+
+def phase_ssm(torch, dev, train, counts, zero_counts, read_counts):
+    """3l: mamba2-370m at full width and depth (8 nodes) and zamba2-7b at
+    full width cut to 12 layers (3 nodes) through the train entry, then
+    both at reduced width on the card against the CPU. Returns the SignTopK
+    record at each trainer's shape."""
+    import dataclasses
+    import functools
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import _tree_items, init_params
+    out = {}
+
+    def trainer(name, argv, want_layers, want_shared):
+        """6 steps with the kernel check at the last sync; the run's
+        checks and logs. Returns the run's result and its steady steps."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        on_sync, rec = sync_kernel_check(torch, 5, f"{name} trainer diff")
+        zero_counts()
+        alloc0 = alloc_counts(torch)
+        with SharedLog() as shared:
+            result = train.run(argv, on_sync=on_sync)
+        alloc1 = alloc_counts(torch)
+        counts[f"{name}_trainer"] = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        state, step, cfg = result["state"], result["train_step"], \
+            result["cfg"]
+        losses, n = result["losses"], step.n_nodes
+        launches = counts[f"{name}_trainer"]["sign_topk_blocks"]
+        log(f"{name} trainer: {cfg.arch_id} {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM "
+            f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+            f"{cfg.ssm_chunk}, conv {cfg.ssm_conv}, attention heads "
+            f"{cfg.n_heads}, attn_every {cfg.attn_every}, vocab "
+            f"{cfg.vocab_size}; D = {step.d_model_total} per node, D_pad "
+            f"{step.d_pad}, n = {n}")
+        if cfg.n_layers != want_layers:
+            raise AssertionError(f"{name} trainer: {cfg.n_layers} layers")
+        if len(losses) != 6 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name} trainer: losses {losses}")
+        if launches != 2 or state["sync_rounds"] != 2:
+            raise AssertionError(f"{name} trainer: {launches} SignTopK "
+                                 f"launches for {state['sync_rounds']} "
+                                 f"syncs (want 2)")
+        # 6 steps x n nodes x the forward and its recomputation
+        if shared.calls != want_shared * 6 * n * 2:
+            raise AssertionError(f"{name} trainer: the shared block ran "
+                                 f"{shared.calls} times")
+        trig = int(state["triggers"])
+        want_bits = float(step.plan.degrees[0][0]) * (
+            n * state["sync_rounds"] + trig * step.payload_bits)
+        got_bits = float(state["bits"])
+        if abs(got_bits - want_bits) > 1e-6 * want_bits or trig <= 0:
+            raise AssertionError(f"{name} trainer: bits {got_bits} != "
+                                 f"reckoned {want_bits} from {trig} "
+                                 f"triggers")
+        if state["params"][:, step.d_model_total:].any() or \
+                state["x_hat"][:, step.d_model_total:].any():
+            raise AssertionError(f"{name} trainer: the padded tail is not "
+                                 f"zero")
+        # step 6 holds the kernel check: its hook time is given back
+        s_step = list(result["s_per_step"])
+        s_step[5] -= rec["hook_s"]
+        steady = s_step[1:]
+        rows = rec["tiles"]
+        bound = sign_topk_bound_ms(rows)
+        log(f"{name} trainer: losses {losses}; {launches} SignTopK "
+            f"launches, {trig} triggers, bits {got_bits:.6e} == reckoned "
+            f"{want_bits:.6e}; shared block applied {shared.calls} times; "
+            f"device peak {peak:.2f} GB")
+        log(f"{name} trainer: s/step {[round(v, 4) for v in s_step]} (step "
+            f"6 less its kernel check's {rec['hook_s']:.2f} s); steps 2..6 "
+            f"mean {sum(steady) / 5:.4f} s, median {median(steady):.4f} s; "
+            f"allocator during the run "
+            f"{ {k: alloc1[k] - alloc0[k] for k in ALLOC_KEYS} }")
+        log(f"{name} trainer: SignTopK on the last sync's real diff ({rows}, "
+            f"1024) f32: {rec['ms']:.4f} ms against the byte bound "
+            f"{bound:.4f} ms ({(rows * 1024 * 8 + rows * 4) / 1e9:.2f} GB at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {100 * bound / rec['ms']:.1f}"
+            f"% of its speed); kernel == plain version on every tile, max "
+            f"abs err {rec['err']:.3e} ({rec['check_s']:.1f} s)")
+        out[name] = {"ms": rec["ms"], "bound_ms": bound, "shape": [rows, 1024],
+                     "max_abs_err": rec["err"], "peak_gb": peak}
+        return result, steady
+
+    # ---- mamba2-370m at full width and depth, 8 nodes
+    ssm_args = with_arg(with_arg(MAIN_ARGS, "--arch", "mamba2-370m"),
+                        "--nodes", "8")
+    result, steady = trainer("mamba2", ssm_args, 48, 0)
+    del result
+    torch.cuda.empty_cache()
+    # where a step goes: the profiler's host cost grows with its events
+    # (about 145 K launches per step here), so as in 3b a depth-6 run of 4
+    # steps gives the wall time and its steps t = 4..6 (one sync) are
+    # profiled
+    with ArchRegistry(lambda c: dataclasses.replace(c, n_layers=6)):
+        d6 = train.run(with_arg(ssm_args, "--steps", "4"))
+    d6_state, d6_step = d6["state"], d6["train_step"]
+    d6_wall = sum(d6["s_per_step"][1:]) / 3
+    pipe = TokenPipeline(vocab_size=d6["cfg"].vocab_size, seq_len=128,
+                         batch_per_node=2, n_nodes=8, seed=0)
+
+    def d6_steps():
+        st = d6_state
+        for i in range(4, 7):
+            st, _ = d6_step(st, pipe.global_batch(i))
+    dev_s, acts, idle = profiled(torch, d6_steps, 3, d6_wall,
+                                 tables=(("self_device_time_total", 8),))
+    log(f"mamba2 trainer at depth 6 of 48: s/step "
+        f"{[round(v, 4) for v in d6['s_per_step']]}; profiled steps 5..7: "
+        f"device time {dev_s:.4f} s/step over {acts:.0f} device "
+        f"activities/step; idle {100 * idle:.1f}% against the depth-6 steady "
+        f"mean {d6_wall:.4f} s/step (steps 2..4)")
+    del d6, d6_state, d6_step
+    torch.cuda.empty_cache()
+
+    # ---- zamba2-7b at full width, 12 layers (the shared block after layers
+    # 5 and 11), 3 nodes
+    with ArchRegistry(lambda c: dataclasses.replace(c, n_layers=12)):
+        result, _ = trainer("zamba2", with_arg(with_arg(
+            MAIN_ARGS, "--arch", "zamba2-7b"), "--nodes", "3"), 12, 2)
+    del result
+    torch.cuda.empty_cache()
+
+    # ---- the card against the CPU at reduced width, float32 compute and
+    # scores: mamba2-370m.reduced() and zamba2-7b.reduced(n_layers=4) (the
+    # shared block after layers 1 and 3) at n = 4 for 6 steps
+    chunked = attention.chunked_attention
+    attention.chunked_attention = functools.partial(
+        chunked, score_dtype=torch.float32)
+    try:
+        red_args = MAIN_ARGS + ["--reduced"]
+        for name, arch, sizes in (("mamba2", "mamba2-370m", {}),
+                                  ("zamba2", "zamba2-7b", {"n_layers": 4})):
+            f32 = ArchRegistry(lambda c, s=sizes: Float32Reduced(c, **s))
+            with f32:
+                cfg = registry.get_config(arch).reduced()
+            card = dict(_tree_items(init_params(
+                cfg, prng.PRNGKey(0).to(dev))))
+            host = dict(_tree_items(init_params(cfg, prng.PRNGKey(0))))
+            x0_gap = max(ulps(card[k].cpu(), v) for k, v in host.items())
+            if x0_gap > ULPS:
+                raise AssertionError(f"reduced {arch}: x^0 {x0_gap} ulps "
+                                     f"from the CPU's draw")
+            runs = {}
+            for where in ("cuda", "cpu"):
+                zero_counts()
+                with f32:
+                    res = train.run(with_arg(with_arg(
+                        red_args, "--arch", arch), "--device", where))
+                runs[where] = (res, read_counts())
+            (a, ca), (b, _) = runs["cuda"], runs["cpu"]
+            counts[f"{name}_reduced_card"] = ca
+            sa, sb = a["state"], b["state"]
+            if (int(sa["triggers"]), sa["sync_rounds"], float(sa["bits"])) \
+                    != (int(sb["triggers"]), sb["sync_rounds"],
+                        float(sb["bits"])) or ca["sign_topk_blocks"] != 2:
+                raise AssertionError(f"reduced {arch}: card and CPU differ "
+                                     f"in triggers, syncs or bits")
+            np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-4,
+                                       err_msg=f"reduced {arch}: losses")
+            gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                           b["losses"]))
+            fl = flips_only(sa, sb)
+            log(f"reduced {arch} ({cfg.n_layers} layers, d_model "
+                f"{cfg.d_model}, {cfg.ssm_heads} SSM heads of "
+                f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+                f"{cfg.ssm_chunk}, attn_every {cfg.attn_every}), float32, "
+                f"card == CPU: x^0 within {x0_gap} ulps; "
+                f"{int(sa['triggers'])} triggers, {sa['sync_rounds']} syncs, "
+                f"bits {float(sa['bits']):.6e}; losses {a['losses']} (CPU "
+                f"{b['losses']}), largest relative gap {gap:.3e}; x_hat "
+                f"beyond 5e-4 on {fl['xhat_far']} entries in "
+                f"{fl['flip_tiles']} of {fl['tiles']} tiles; params gap "
+                f"{fl['params_gap']:.3e}, {fl['params_gap_rest']:.3e} "
+                f"outside flipped columns")
+            del runs, a, b, sa, sb, card, host
     finally:
         attention.chunked_attention = chunked
     torch.cuda.empty_cache()
@@ -1740,6 +1976,11 @@ def main() -> int:
     moe_rec = phase_archs(torch, dev, train, counts, zero_counts, read_counts)
     max_err = max(max_err, moe_rec["moe_max_abs_err"])
     log(f"phase 3k: {time.perf_counter() - t0:.1f} s")
+    # ------------------------ 3l. the SSM family and the hybrid
+    t0 = time.perf_counter()
+    ssm_rec = phase_ssm(torch, dev, train, counts, zero_counts, read_counts)
+    max_err = max([max_err] + [r["max_abs_err"] for r in ssm_rec.values()])
+    log(f"phase 3l: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------- 4. report
     def by_path(name):
@@ -1759,7 +2000,9 @@ def main() -> int:
         "moe_trainer_shape": moe_rec["moe_shape"],
         "moe_trainer_ms": moe_rec["moe_ms"],
         "moe_trainer_bound_ms": moe_rec["moe_bound_ms"],
-        "moe_trainer_shape_gaussian_ms": moe_rec["moe_randn_ms"]}, {
+        "moe_trainer_shape_gaussian_ms": moe_rec["moe_randn_ms"],
+        **{f"{name}_trainer_{k}": r[k] for name, r in ssm_rec.items()
+           for k in ("shape", "ms", "bound_ms")}}, {
         "name": "qsgd_blocks", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qsgd.cu",
         "replaces": "src/repro/kernels/qsgd.py:41",

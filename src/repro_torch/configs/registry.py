@@ -1,8 +1,9 @@
 """Architecture registry: arch-id -> ModelConfig (counterpart of
 ``repro/configs/registry.py``). The dense family (qwen1.5-0.5b and -32b,
-minitron-4b, stablelm-1.6b, musicgen-large, chameleon-34b) and the MoE family
-(deepseek-moe-16b) are ported; mamba2-370m, zamba2-7b and deepseek-v3-671b
-wait for the SSM, hybrid and MLA/MTP blocks (ROADMAP.md, A.11)."""
+minitron-4b, stablelm-1.6b, musicgen-large, chameleon-34b), the MoE family
+(deepseek-moe-16b), the SSM family (mamba2-370m) and the hybrid (zamba2-7b)
+are ported; deepseek-v3-671b waits for the MLA and MTP blocks (ROADMAP.md,
+A.11)."""
 from __future__ import annotations
 
 import importlib
@@ -17,10 +18,11 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "stablelm-1.6b": "stablelm_1_6b",
     "qwen1.5-32b": "qwen1_5_32b",
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-7b": "zamba2_7b",
 }
-# the reference's other archs, refused until their blocks are ported
-_WAITING = {"mamba2-370m": "SSM", "zamba2-7b": "hybrid SSM + attention",
-            "deepseek-v3-671b": "MLA and MTP"}
+# the reference's other arch, refused until its blocks are ported
+_WAITING = {"deepseek-v3-671b": "MLA and MTP"}
 
 ARCH_IDS = tuple(_MODULES)
 

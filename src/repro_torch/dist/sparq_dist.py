@@ -226,7 +226,10 @@ def grad_views(row: torch.Tensor, grad_row: torch.Tensor,
     that require grad, each with the matching view of ``grad_row`` as its
     ``.grad``, so backward accumulates straight into ``grad_row``. Each
     stack ``seg{i}`` is one tree per layer, so that backward never
-    materializes a zero gradient of the whole stack per layer.
+    materializes a zero gradient of the whole stack per layer. A leaf
+    outside the stacks (the embedding, the final norm, a hybrid's
+    ``shared_attn``) is one view, and backward adds the gradient of every
+    use of it into that view.
 
     With a ``dtype`` other than float32 (a bfloat16 ``param_dtype``) the
     tree holds each view cast to it, as the reference's ``unravel`` casts

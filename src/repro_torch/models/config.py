@@ -3,7 +3,8 @@
 Re-declared here because importing ``repro.models.config`` runs
 ``repro/models/__init__.py``, which imports jax. The fields, defaults and
 ``reduced()`` are the reference's, so a configuration means the same thing
-in both packages; the port's model code runs the dense and MoE families.
+in both packages; the port's model code runs the dense, MoE, SSM and hybrid
+families.
 """
 from __future__ import annotations
 

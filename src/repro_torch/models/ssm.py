@@ -1,0 +1,221 @@
+"""Mamba2's SSD block for training (counterpart of the train part of
+``repro/models/ssm.py``, arXiv:2405.21060).
+
+The chunked SSD algorithm: quadratic within a chunk, a linear recurrence
+across chunks. Grouped B and C (``ssm_groups``), multi-head x with head dim
+P, a depthwise causal conv over the (x, B, C) channels, a learned negative A
+per head, the D skip and the gated RMS norm before the output projection.
+The numerics follow the reference step by step: the projections, the conv
+and the gated norm in the compute dtype, the scan in float32, ``softplus``
+as ``logaddexp(x, 0)``. The einsums and projections are ``torch.einsum`` and
+matrix products; the reference too computes them outside any Pallas kernel,
+so no kernel of the port is involved.
+
+The recurrent decode step (``init_ssm_cache``, ``ssm_decode``) is not
+ported yet (ROADMAP.md A.11.5).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import prng
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of, rms_norm_vec
+
+Params = Dict[str, torch.Tensor]
+
+# the reference's init_ssm draws leaf i from split(key, 5)[i]
+_KEY_INDEX = {"w_in": 0, "conv_w": 1, "w_out": 2}
+
+
+def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
+    """(d_inner, heads, head dim P, groups G, state N)."""
+    return (cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups,
+            cfg.ssm_state)
+
+
+def conv_channels(cfg: ModelConfig) -> int:
+    d_in, _, _, g, n = _dims(cfg)
+    return d_in + 2 * g * n
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """One SSM block's leaves and shapes (the reference's ``init_ssm``)."""
+    d = cfg.d_model
+    d_in, h, _, g, n = _dims(cfg)
+    c = conv_channels(cfg)
+    return {"w_in": (d, 2 * d_in + 2 * g * n + h),   # z, x, B, C, dt
+            "conv_w": (cfg.ssm_conv, c), "conv_b": (c,), "a_log": (h,),
+            "d_skip": (h,), "dt_bias": (h,), "norm_scale": (d_in,),
+            "w_out": (d_in, d)}
+
+
+def init_keys(cfg: ModelConfig, key: torch.Tensor
+              ) -> Dict[str, torch.Tensor]:
+    """The threefry key of each drawn leaf, ``split(key, 5)`` as in
+    ``init_ssm``; ``key`` may carry leading batch dims (one key per stacked
+    layer)."""
+    ks = prng.split(key, 5)
+    return {name: ks[..., i, :] for name, i in _KEY_INDEX.items()}
+
+
+def init_scale(cfg: ModelConfig, name: str) -> float:
+    """Each drawn leaf's ``dense_init`` scale: ``w_out`` at
+    ``0.02 / sqrt(2 L)``, ``conv_w`` at 0.5, ``w_in`` at 0.02."""
+    if name == "w_out":
+        return 0.02 / math.sqrt(2 * cfg.n_layers)
+    return 0.5 if name == "conv_w" else 0.02
+
+
+def _linspace_1_16(h: int) -> np.ndarray:
+    """``jnp.linspace(1., 16., h)`` in float32 as XLA computes it on the
+    CPU: with ``c = f32(1 / (h - 1))``, entry i is ``fma(i, 16 c, 1 - i c)``
+    and the last entry 16. The product of two float32 values is exact in
+    float64, so the float64 sum rounds as the fused multiply-add does."""
+    f32 = np.float32
+    if h == 1:
+        return np.ones((1,), f32)
+    c = f32(1) / f32(h - 1)
+    i = np.arange(h - 1, dtype=f32)
+    head = (f32(1) - i * c).astype(f32)
+    out = (i.astype(np.float64) * np.float64(f32(16) * c)
+           + head.astype(np.float64)).astype(f32)
+    return np.concatenate([out, np.array([16.0], f32)])
+
+
+def constant_leaves(cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The leaves ``init_ssm`` sets without a key, as float32 arrays:
+    ``a_log = log(linspace(1, 16, h))`` and ``dt_bias =
+    log(expm1(0.01))``, each ``log`` and ``expm1`` rounded once from
+    float64 (XLA's float32 ``log`` is within an ulp of that), ``d_skip``
+    and ``norm_scale`` 1, ``conv_b`` 0."""
+    d_in, h, _, _, _ = _dims(cfg)
+    f32 = np.float32
+    a_log = np.log(_linspace_1_16(h).astype(np.float64)).astype(f32)
+    e = f32(np.expm1(np.float64(f32(0.01))))
+    dt_bias = np.full((h,), np.log(np.float64(e)), f32)
+    return {"a_log": a_log, "dt_bias": dt_bias,
+            "d_skip": np.ones((h,), f32), "norm_scale": np.ones((d_in,), f32),
+            "conv_b": np.zeros((conv_channels(cfg),), f32)}
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    d_in, h, _, g, n = _dims(cfg)
+    return torch.split(zxbcdt, [d_in, d_in + 2 * g * n, h], dim=-1)
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv then SiLU. xbc: (B, L, C); w: (K, C). The K
+    shifted products are summed in order in xbc's dtype, as the reference's
+    ``sum``."""
+    k, length = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = pad[:, 0:length, :] * w[0][None, None, :]
+    for i in range(1, k):
+        out = out + pad[:, i:i + length, :] * w[i][None, None, :]
+    return F.silu(out + b[None, None, :])
+
+
+def segsum(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular segment sums: ``out[..., i, j] = sum_{j<k<=i}
+    x[..., k]``, ``-inf`` above the diagonal. A masked cumulative sum, as
+    the reference (not ``cs[i] - cs[j]``, which rounds otherwise)."""
+    seg = x.shape[-1]
+    xr = x[..., None].expand(*x.shape, seg)
+    below = torch.tril(torch.ones((seg, seg), dtype=torch.bool,
+                                  device=x.device), -1)
+    xr = torch.where(below, xr, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+    x_seg = torch.cumsum(xr, dim=-2)
+    keep = torch.tril(torch.ones((seg, seg), dtype=torch.bool,
+                                 device=x.device), 0)
+    return torch.where(keep, x_seg, torch.full((), -math.inf,
+                                               dtype=x.dtype,
+                                               device=x.device))
+
+
+def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, chunk: int,
+                initial_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD scan, all float32. x: (B, L, H, P); a: (B, L, H) (``dt * A``,
+    negative); b, c: (B, L, G, N), heads per group H // G, group-major.
+    Returns y (B, L, H, P) and the final state (B, H, P, N). The intra-chunk
+    term is factored into pairwise einsums, so no (b, c, l, h, n, p)
+    intermediate is formed."""
+    bb, L, h, p = x.shape
+    g = b.shape[2]
+    f32 = torch.float32
+    x, a, b, c = (t.to(f32) for t in (x, a, b, c))
+    # "b l g n -> b l (g r) n": each group's row repeated for its r heads
+    b = b.repeat_interleave(h // g, dim=2)
+    c = c.repeat_interleave(h // g, dim=2)
+    nc = L // chunk
+    if nc * chunk != L:
+        raise ValueError(f"L={L} not divisible by chunk={chunk}")
+    x = x.reshape(bb, nc, chunk, h, p)
+    b = b.reshape(bb, nc, chunk, h, -1)
+    c = c.reshape(bb, nc, chunk, h, -1)
+    a = a.reshape(bb, nc, chunk, h).permute(0, 3, 1, 2)          # b h c l
+    a_cs = torch.cumsum(a, dim=-1)
+
+    # 1. intra-chunk (quadratic) term
+    l_mat = torch.exp(segsum(a))                                 # b h c l l
+    cb = torch.einsum("bclhn,bcshn->bhcls", c, b)
+    y_diag = torch.einsum("bhcls,bcshp->bclhp", cb * l_mat, x)
+
+    # 2. chunk-final states
+    decay_states = torch.exp(a_cs[..., -1:] - a_cs)              # b h c l
+    xd = x * decay_states.permute(0, 2, 3, 1)[..., None]
+    states = torch.einsum("bclhn,bclhp->bchpn", b, xd)
+
+    # 3. inter-chunk recurrence on the states
+    if initial_state is None:
+        initial_state = torch.zeros((bb, h, p, b.shape[-1]), dtype=f32,
+                                    device=x.device)
+    states = torch.cat([initial_state[:, None].to(f32), states], dim=1)
+    a_chunk = F.pad(a_cs[..., -1], (1, 0))                       # b h (c+1)
+    decay_chunk = torch.exp(segsum(a_chunk))
+    new_states = torch.einsum("bhzc,bchpn->bzhpn", decay_chunk, states)
+    states, final_state = new_states[:, :-1], new_states[:, -1]
+
+    # 4. state -> output term
+    state_decay = torch.exp(a_cs)                                # b h c l
+    y_off = torch.einsum("bclhn,bchpn->bclhp", c, states)
+    y_off = y_off * state_decay.permute(0, 2, 3, 1)[..., None]
+    return (y_diag + y_off).reshape(bb, L, h, p), final_state
+
+
+def ssm_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Train/prefill. x: (B, L, D) in the compute dtype -> (B, L, D).
+    ``positions`` is unused, as in the reference."""
+    cd = dtype_of(cfg.compute_dtype)
+    f32 = torch.float32
+    bsz, L, _ = x.shape
+    d_in, h, p_dim, g, n = _dims(cfg)
+    z, xbc, dt_raw = _split_proj(cfg, x @ p["w_in"].to(cd))
+    xbc = _causal_conv(xbc, p["conv_w"].to(cd), p["conv_b"].to(cd))
+    xs, b, c = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
+    xs = xs.reshape(bsz, L, h, p_dim)
+    b = b.reshape(bsz, L, g, n)
+    c = c.reshape(bsz, L, g, n)
+    # jax.nn.softplus is logaddexp(x, 0)
+    u = dt_raw.to(f32) + p["dt_bias"].to(f32)
+    dt = torch.logaddexp(u, torch.zeros((), dtype=f32, device=u.device))
+    a_neg = -torch.exp(p["a_log"].to(f32))                       # (H,)
+    chunk = min(cfg.ssm_chunk, L)
+    while L % chunk:
+        chunk -= 1
+    y, _ = ssd_chunked(xs * dt[..., None], dt * a_neg[None, None, :], b, c,
+                       chunk)
+    y = y + xs.to(f32) * p["d_skip"].to(f32)[None, None, :, None]
+    y = y.reshape(bsz, L, d_in).to(cd)
+    y = rms_norm_vec(y * F.silu(z)) * p["norm_scale"].to(cd)
+    return y @ p["w_out"].to(cd)

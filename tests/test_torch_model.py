@@ -64,7 +64,7 @@ def test_config_equals_reference_field_for_field():
     assert dataclasses.asdict(j.reduced(**SMALL)) == \
         dataclasses.asdict(t.reduced(**SMALL))
     with pytest.raises(ValueError):
-        tget("mamba2-370m")
+        tget("deepseek-v3-671b")
 
 
 def test_params_from_jax_bit_for_bit():
@@ -214,16 +214,28 @@ def test_remat_changes_nothing():
 
 
 def test_unported_families_raise():
-    """The MoE family is ported; the SSM, hybrid, MLA and MTP blocks are
-    not, and every model entry refuses them."""
+    """The MoE, SSM and hybrid families are ported and every model entry
+    takes them; the MLA and MTP blocks are not, and every entry refuses
+    them."""
     _, tc = _cfgs()
-    for kw in (dict(family="ssm", ssm_state=16),
-               dict(family="hybrid", ssm_state=16, attn_every=2),
-               dict(use_mla=True), dict(use_mtp=True)):
+
+    def entries(c):
+        return (ttf.param_shapes(c),
+                ttf.init_keys(c, torch.zeros(2, dtype=torch.int64)))
+    for kw in (dict(use_mla=True), dict(use_mtp=True)):
         c = dataclasses.replace(tc, **kw)
-        for fn in (ttf.param_shapes, lambda c: ttf.init_keys(
-                c, torch.zeros(2, dtype=torch.int64))):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                fn(c)
-    ttf.param_shapes(dataclasses.replace(tc, family="moe", n_experts=4,
-                                         moe_top_k=2, moe_d_ff=64))
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ttf.param_shapes(c)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ttf.init_keys(c, torch.zeros(2, dtype=torch.int64))
+    shapes, keys = entries(dataclasses.replace(tc, family="ssm",
+                                               ssm_state=16))
+    assert set(shapes) == {"embed", "final_norm", "seg0"}
+    assert set(shapes["seg0"]) == {"norm", "ssm"}
+    assert ("seg0", "ssm", "w_in") in keys
+    shapes, keys = entries(dataclasses.replace(tc, family="hybrid",
+                                               ssm_state=16, attn_every=2))
+    assert set(shapes["shared_attn"]) == {"attn", "mlp", "norm1", "norm2"}
+    assert ("shared_attn", "attn", "wq") in keys
+    entries(dataclasses.replace(tc, family="moe", n_experts=4, moe_top_k=2,
+                                moe_d_ff=64))
