@@ -90,6 +90,28 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       depth 6 profiled for its idle share; then both at reduced width in
       float32 on the card against the CPU for 6 steps (x^0 within 4 ulps,
       losses within 1e-4, x_hat and params up to boundary flips);
+   m. serving (prefill, then cached decode) through ``dist/serve.py``'s
+      ``build_prefill`` and ``build_decode``, x^0 drawn on the card from
+      PRNGKey(0): qwen1.5-0.5b at full width and depth (4 prompts of 2,048
+      tokens, then 32 decode steps at cache_len 4,096 teacher-forced on
+      the prompt; then a decode_32k cache at batch 8, 8 steps at positions
+      32,760..32,767; then long_500k's sliding window of 4,096 as a ring
+      buffer at batch 1, 16 steps across a multiple of the window, slots
+      reused); deepseek-v3-671b at full width (MLA with the absorbed
+      decode, 256 experts, bfloat16 weights) cut to depth 4, 2 x 512
+      tokens and 32 steps (its float32 check at capacity factor 8.0);
+      mamba2-370m at full width and depth (4 x 2,048, 32 recurrent steps);
+      zamba2-7b at full width and all 81 layers (2 x 1,024, 32 steps, 13
+      shared-block caches); each with its prefill
+      and decode times, tokens/s, peak and decode-vs-prefill gap, then
+      again in float32 compute and scores on the same weights, where each
+      decode step's logits are held against prefill's within 1e-3 of the
+      largest (decode 3 steps profiled at 4,096 and 32,768 slots). Then
+      every config's reduced decode in float32 on the card against the CPU
+      (16 greedy steps: logits within 1e-5 relative, pos and tokens equal)
+      and deepseek-v3-671b's reduced trainer with its MTP loss on the card
+      against the CPU (6 steps, SignTopK twice and held against its plain
+      version, bits against the reckoning, losses within 1e-4);
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -602,15 +624,18 @@ def phase_ckpt(torch, dev, train, counts, zero_counts, read_counts) -> None:
 
 class Float32Reduced:
     """A registry config whose ``reduced()`` computes in float32, at the
-    sizes given here unless the caller gives its own."""
+    sizes given here unless the caller gives its own; with
+    ``param_dtype``, its weights in that dtype too."""
 
-    def __init__(self, cfg, **sizes):
+    def __init__(self, cfg, param_dtype=None, **sizes):
         self.cfg, self.sizes = cfg, sizes
+        self.param_dtype = param_dtype or cfg.param_dtype
 
     def reduced(self, **kw):
         import dataclasses
         return dataclasses.replace(self.cfg.reduced(**{**self.sizes, **kw}),
-                                   compute_dtype="float32")
+                                   compute_dtype="float32",
+                                   param_dtype=self.param_dtype)
 
 
 def phase_suites(torch, dev, counts, zero_counts, read_counts) -> None:
@@ -1245,6 +1270,395 @@ def phase_ssm(torch, dev, train, counts, zero_counts, read_counts):
             del runs, a, b, sa, sb, card, host
     finally:
         attention.chunked_attention = chunked
+    torch.cuda.empty_cache()
+    return out
+
+
+# decode against prefill at full width: in float32 compute and scores,
+# within 1e-3 of the largest logit (measured 8.7e-6 on qwen1.5-0.5b). The
+# config's own bfloat16 gap is reported, not held: the reference's TOL 0.05
+# (tests/test_decode_consistency.py) is set for 2-layer reduced configs,
+# and at full depth the two paths' bfloat16 roundings (batched and
+# one-token products) differ by more, from position 0, where attention is
+# exact in both (measured 0.08-0.13 on qwen1.5-0.5b's logits of 3.2)
+SERVE_F32_RTOL = 1e-3
+RED_DECODE_RTOL = 1e-5   # reduced decode, card against CPU, float32
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_run(torch, dev, cfg, batch, prompt_len, cache_len, steps,
+              params=None, seed=0):
+    """One config through the serve entry points: x^0 from PRNGKey(0) on
+    ``dev`` unless ``params`` are given, ``build_prefill`` on ``batch``
+    prompts of ``prompt_len`` tokens (a cold call, then a timed warm one),
+    then ``steps`` decode steps through ``build_decode`` from an empty
+    cache of ``cache_len`` slots, teacher-forced on the prompt, each
+    step's logits against prefill's at its position. Returns the weights,
+    the times, tokens/s, the largest gap and logit, the device peak and the
+    last cache."""
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.dist.serve import build_decode, build_prefill
+    from repro_torch.models.transformer import init_cache, init_params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    if params is None:
+        params = init_params(cfg, prng.PRNGKey(0).to(dev))
+    _sync(torch, dev)
+    x0_s = time.perf_counter() - t0
+    toks = torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt_len)), device=dev)
+    prefill, decode = build_prefill(cfg, dev), build_decode(cfg, dev)
+    pre_s = []
+    for _ in range(2):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        logits = prefill(params, toks)
+        _sync(torch, dev)
+        pre_s.append(time.perf_counter() - t0)
+    ref = logits[:, :steps].float()
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    cache = init_cache(cfg, batch, cache_len, device=dev)
+    step_s, gap = [], 0.0
+    for t in range(steps):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        lg, cache = decode(params, cache, toks[:, t:t + 1], None, t)
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t0)
+        gap = max(gap, float((lg[:, 0].float() - ref[:, t]).abs().max()))
+        finite = finite and bool(torch.isfinite(lg).all())
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else float("nan"))
+    med = median(step_s[1:])
+    return {"params": params, "cache": cache, "x0_s": x0_s,
+            "prefill_s": pre_s, "prefill_tok_s": batch * prompt_len
+            / pre_s[1], "decode_ms": med * 1e3, "decode_tok_s": batch / med,
+            "decode_first_ms": step_s[0] * 1e3, "gap": gap, "peak_gb": peak,
+            "finite": finite, "ref_scale": float(ref.abs().max())}
+
+
+def timed_decode(torch, dev, decode, params, cache, tokens, positions):
+    """Decode steps at the given positions; returns the median of the
+    steps after the first, in ms, and the last logits."""
+    step_s = []
+    for i, p in enumerate(positions):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        lg, cache = decode(params, cache, tokens[:, i:i + 1], None, p)
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t0)
+    return median(step_s[1:]) * 1e3, lg
+
+
+def reduced_decode_pair(torch, dev, arch, steps=16):
+    """``arch``'s ``reduced()`` config in float32 compute: the same weights
+    (drawn on the host) on the card and on the CPU, ``steps`` greedy decode
+    steps each from the same first token. Returns the largest logit gap
+    relative to the largest logit, whether the ``pos`` leaves and the
+    greedy tokens are equal."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.core import prng
+    from repro_torch.dist.serve import build_decode
+    from repro_torch.models.transformer import (_tree_items, init_cache,
+                                                init_params)
+    cfg = dataclasses.replace(registry.get_config(arch).reduced(),
+                              compute_dtype="float32")
+    host = init_params(cfg, prng.PRNGKey(0))
+    first = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 1)))
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        params = host if where.type == "cpu" else _to(host, where)
+        cache = init_cache(cfg, 2, steps, device=where)
+        decode = build_decode(cfg, where)
+        tok, logits, toks = first.to(where), [], []
+        for t in range(steps):
+            lg, cache = decode(params, cache, tok, None, t)
+            tok = torch.argmax(lg[:, -1:], dim=-1)
+            logits.append(lg.float().cpu())
+            toks.append(tok.cpu())
+        runs[where.type] = (torch.cat(logits, 1), torch.cat(toks, 1),
+                            {k: v.cpu() for k, v in _tree_items(cache)})
+    (la, ta, ca), (lb, tb, cb) = runs[dev.type], runs["cpu"]
+    rel = float((la - lb).abs().max() / lb.abs().max())
+    pos_equal = all(torch.equal(ca[k], cb[k]) for k in cb if k[-1] == "pos")
+    return rel, pos_equal, bool(torch.equal(ta, tb))
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def phase_serve(torch, dev, train, counts, zero_counts, read_counts):
+    """3m: the serving path. qwen1.5-0.5b, mamba2-370m and zamba2-7b at
+    full width and depth and deepseek-v3-671b at full width cut to depth 4:
+    x^0, batched prefill and cached decode against it; qwen's decode_32k
+    cache and long_500k ring buffer; every config's reduced decode on the
+    card against the CPU; deepseek-v3-671b's reduced trainer on the card
+    against the CPU. Serving launches no kernel of the port."""
+    import dataclasses
+    import functools
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.dist.serve import build_decode
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import init_cache
+    card = card_line()
+    out = {}
+
+    def report(name, cfg, batch, prompt_len, cache_len, r):
+        log(f"serve {name}: {cfg.arch_id}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.param_dtype} params, {cfg.compute_dtype} "
+            f"compute; x^0 {r['x0_s']:.3f} s; prefill {batch} x "
+            f"{prompt_len}: cold {r['prefill_s'][0]:.4f} s, warm "
+            f"{r['prefill_s'][1]:.4f} s ({r['prefill_tok_s']:.1f} tokens/s);"
+            f" decode at cache_len {cache_len}: first step "
+            f"{r['decode_first_ms']:.3f} ms, median of steps 2..N "
+            f"{r['decode_ms']:.3f} ms/step ({r['decode_tok_s']:.1f} "
+            f"tokens/s); decode-vs-prefill max |logit gap| {r['gap']:.4e} "
+            f"(largest |logit| {r['ref_scale']:.3f}); device peak "
+            f"{r['peak_gb']:.2f} GB [{card}]")
+        if not r["finite"]:
+            raise AssertionError(f"serve {name}: non-finite logits")
+
+    def run(name, cfg, batch, prompt_len, cache_len, steps, **check):
+        """The config's own numerics, timed; then the same weights and
+        prompts in float32 compute and scores (and the fields ``check``),
+        decode held against prefill."""
+        zero_counts()
+        r = serve_run(torch, dev, cfg, batch, prompt_len, cache_len, steps)
+        counts[f"serve_{name}"] = read_counts()
+        report(name, cfg, batch, prompt_len, cache_len, r)
+        out[name] = {k: v for k, v in r.items()
+                     if k not in ("params", "cache")}
+        chunked = attention.chunked_attention
+        attention.chunked_attention = functools.partial(
+            chunked, score_dtype=torch.float32)
+        try:
+            r32 = serve_run(torch, dev, dataclasses.replace(
+                cfg, compute_dtype="float32", **check), batch, prompt_len,
+                cache_len, steps, params=r["params"])
+        finally:
+            attention.chunked_attention = chunked
+        rel = r32["gap"] / r32["ref_scale"]
+        log(f"serve {name}, float32 compute and scores, the same weights: "
+            f"decode-vs-prefill max |logit gap| {r32['gap']:.4e}, "
+            f"{rel:.3e} of the largest |logit| {r32['ref_scale']:.3f} "
+            f"(bound {SERVE_F32_RTOL}); bfloat16 gap above "
+            f"{r['gap']:.4e} [{card}]")
+        if not r32["finite"] or rel > SERVE_F32_RTOL:
+            raise AssertionError(f"serve {name}: float32 gap {rel:.3e} of "
+                                 f"the largest logit > {SERVE_F32_RTOL}")
+        out[name]["f32_gap_rel"] = rel
+        del r32
+        return r
+
+    # ---- qwen1.5-0.5b at full width and depth
+    qwen = registry.get_config("qwen1.5-0.5b")
+    r = run("qwen", qwen, 4, 2048, 4096, 32)
+    params, cache = r.pop("params"), r.pop("cache")
+    del r
+    decode = build_decode(qwen, dev)
+
+    def decode_window(cache, first):
+        """3 more decode steps on ``cache``, to be profiled."""
+        toks = torch.randint(0, qwen.vocab_size, (cache["kv"]["k"].shape[1],
+                                                  3), device=dev)
+
+        def steps():
+            for i in range(3):
+                decode(params, cache, toks[:, i:i + 1], None, first + i)
+        return steps
+    dev_s, acts, idle = profiled(torch, decode_window(cache, 32), 3,
+                                 out["qwen"]["decode_ms"] / 1e3)
+    log(f"serve qwen decode, 3 steps profiled: device time "
+        f"{dev_s * 1e3:.3f} ms/step over {acts:.0f} device activities/step; "
+        f"idle {100 * idle:.1f}% against the median "
+        f"{out['qwen']['decode_ms']:.3f} ms/step [{card}]")
+    out["qwen"].update(device_ms=dev_s * 1e3, activities=acts, idle=idle)
+    del cache
+    torch.cuda.empty_cache()
+    # decode_32k's cache at batch 8 (the shape's 128 would be 412 GB):
+    # every step scores all 32,768 slots
+    shape = registry.shape_by_name("decode_32k")
+    clen = registry.cache_len(qwen, shape)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = init_cache(qwen, 8, clen, device=dev)
+    cache_gb = sum(v.numel() * v.element_size()
+                   for v in cache["kv"].values()) / 1e9
+    toks = torch.randint(0, qwen.vocab_size, (8, 8), device=dev)
+    zero_counts()
+    ms, lg = timed_decode(torch, dev, decode, params, cache, toks,
+                          range(clen - 8, clen))
+    counts["serve_qwen_decode_32k"] = read_counts()
+    dev_s, acts, idle = profiled(torch, decode_window(cache, clen - 3), 3,
+                                 ms / 1e3,
+                                 tables=(("self_device_time_total", 6),))
+    log(f"serve qwen decode_32k, 3 steps profiled: device time "
+        f"{dev_s * 1e3:.3f} ms/step over {acts:.0f} device activities/step; "
+        f"idle {100 * idle:.1f}% against the median {ms:.3f} ms/step "
+        f"[{card}]")
+    pos = cache["kv"]["pos"]
+    if not bool(torch.isfinite(lg).all()) or pos[:, -8:].tolist() != [
+            list(range(clen - 8, clen))] * qwen.n_layers:
+        raise AssertionError("serve decode_32k: logits or pos")
+    log(f"serve qwen decode_32k: B 8, cache_len {clen} ({cache_gb:.2f} GB "
+        f"of KV cache), positions {clen - 8}..{clen - 1}: median of steps "
+        f"2..8 {ms:.3f} ms/step ({8 / ms * 1e3:.1f} tokens/s); device peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB [{card}]")
+    out["qwen_decode_32k"] = {"decode_ms": ms, "cache_gb": cache_gb,
+                              "peak_gb": torch.cuda.max_memory_allocated(
+                                  dev) / 1e9, "device_ms": dev_s * 1e3,
+                              "idle": idle}
+    del cache, pos, lg
+    torch.cuda.empty_cache()
+    # long_500k: the sliding window of for_shape, B = 1, a ring buffer of
+    # 4096 slots; 16 steps across a multiple of the window, so that slots
+    # 0..7 are reused by the positions past it
+    shape = registry.shape_by_name("long_500k")
+    swa = registry.for_shape(qwen, shape)
+    clen = registry.cache_len(swa, shape)
+    p0 = 127 * clen - 8
+    cache = init_cache(swa, shape.global_batch, clen, device=dev)
+    toks = torch.randint(0, qwen.vocab_size, (1, 16), device=dev)
+    zero_counts()
+    ms, lg = timed_decode(torch, dev, build_decode(swa, dev), params, cache,
+                          toks, range(p0, p0 + 16))
+    counts["serve_qwen_long_500k"] = read_counts()
+    pos = cache["kv"]["pos"][0].tolist()
+    last = p0 + 15
+    want = {s: p for p in range(p0, p0 + 16) for s in [p % clen]}
+    if pos[:8] != list(range(127 * clen, 127 * clen + 8)) or any(
+            pos[s] != want.get(s, -1) for s in range(clen)) or any(
+            p < last - clen for p in pos if p >= 0) or \
+            not bool(torch.isfinite(lg).all()):
+        raise AssertionError("serve long_500k: ring slots")
+    log(f"serve qwen long_500k: sliding window {swa.sliding_window}, B "
+        f"{shape.global_batch}, a ring of {clen} slots; positions {p0}.."
+        f"{last}: slots 0..7 reused by {pos[0]}..{pos[7]}, every written "
+        f"slot >= {last} - {clen}; median of steps 2..16 {ms:.3f} ms/step "
+        f"[{card}]")
+    out["qwen_long_500k"] = {"decode_ms": ms}
+    del cache, params, lg
+    torch.cuda.empty_cache()
+
+    # ---- deepseek-v3-671b at full width, depth 61 -> 4 (three dense MLA
+    # layers and one MoE layer of 256 experts), bfloat16 weights. The
+    # float32 check runs at capacity factor 8.0, so that routing 2 tokens
+    # per step and 1024 at once drops no choice in either
+    # (tests/test_decode_consistency.py); the timed run at the config's own
+    dsv3 = dataclasses.replace(registry.get_config("deepseek-v3-671b"),
+                               n_layers=4)
+    log("serve dsv3: the float32 decode-vs-prefill check below runs at "
+        "capacity_factor 8.0, as the reference's decode test; the timed "
+        f"run at the config's {dsv3.capacity_factor}")
+    r = run("dsv3", dsv3, 2, 512, 512, 32, capacity_factor=8.0)
+    del r
+    torch.cuda.empty_cache()
+    # ---- mamba2-370m at full width and depth: the recurrent decode
+    r = run("mamba2", registry.get_config("mamba2-370m"), 4, 2048, 2048, 32)
+    del r
+    torch.cuda.empty_cache()
+    # ---- zamba2-7b at full width, all 81 layers: 13 shared-block caches
+    zamba = registry.get_config("zamba2-7b")
+    r = run("zamba2", zamba, 2, 1024, 1024, 32)
+    if r["cache"]["attn"]["k"].shape[0] != 13 or bool(
+            (r["cache"]["attn"]["pos"][:, :32] < 0).any()):
+        raise AssertionError("serve zamba2: shared-block caches")
+    del r
+    torch.cuda.empty_cache()
+
+    # ---- every config's reduced decode, the card against the CPU
+    t0 = time.perf_counter()
+    worst = 0.0
+    zero_counts()
+    for arch in registry.ARCH_IDS:
+        rel, pos_eq, tok_eq = reduced_decode_pair(torch, dev, arch)
+        if rel > RED_DECODE_RTOL or not pos_eq or not tok_eq:
+            raise AssertionError(f"reduced decode {arch}: logit gap {rel}, "
+                                 f"pos equal {pos_eq}, tokens equal "
+                                 f"{tok_eq}")
+        worst = max(worst, rel)
+    counts["serve_reduced_card"] = read_counts()
+    log(f"reduced decode, all {len(registry.ARCH_IDS)} configs, float32, "
+        f"16 greedy steps, card == CPU: logits within {worst:.3e} of the "
+        f"largest (bound {RED_DECODE_RTOL}), pos leaves and greedy tokens "
+        f"equal ({time.perf_counter() - t0:.1f} s)")
+    out["reduced_decode_rel"] = worst
+
+    # ---- deepseek-v3-671b's reduced trainer, the card against the CPU: one
+    # dense and one MoE MLA layer and the MTP head, float32 compute, scores
+    # and weights (bfloat16 weights would round the gradients into ties
+    # that either side may break: tests/test_torch_mla.py)
+    chunked = attention.chunked_attention
+    attention.chunked_attention = functools.partial(
+        chunked, score_dtype=torch.float32)
+    f32 = ArchRegistry(lambda c: Float32Reduced(c, param_dtype="float32"))
+    argv = with_arg(MAIN_ARGS + ["--reduced"], "--arch", "deepseek-v3-671b")
+    check, rec = sync_kernel_check(torch, 5, "dsv3 reduced trainer diff")
+    t0 = time.perf_counter()
+    try:
+        runs = {}
+        for where in ("cuda", "cpu"):
+            syncs = []
+
+            def on_sync(diff, info, syncs=syncs, where=where):
+                syncs.append({k: v.detach().cpu()
+                              if isinstance(v, torch.Tensor) else v
+                              for k, v in info.items()})
+                if where == "cuda":
+                    check(diff, info)
+            zero_counts()
+            with f32:
+                res = train.run(with_arg(argv, "--device", where),
+                                on_sync=on_sync)
+            runs[where] = (res, read_counts(), syncs)
+    finally:
+        attention.chunked_attention = chunked
+    (a, ca, syncs), (b, _, _) = runs["cuda"], runs["cpu"]
+    counts["dsv3_reduced_card"] = ca
+    sa, sb = a["state"], b["state"]
+    step = a["train_step"]
+    want_bits = reckoned_bits(syncs, step.payload_bits)
+    if ca["sign_topk_blocks"] != 2 or sa["sync_rounds"] != 2 or \
+            abs(float(sa["bits"]) - want_bits) > 1e-6 * want_bits or \
+            (int(sa["triggers"]), float(sa["bits"])) != \
+            (int(sb["triggers"]), float(sb["bits"])):
+        raise AssertionError(f"reduced dsv3 trainer: {ca} launches, "
+                             f"{sa['sync_rounds']} syncs, bits "
+                             f"{float(sa['bits'])} (reckoned {want_bits}, "
+                             f"CPU {float(sb['bits'])})")
+    np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-4,
+                               err_msg="reduced dsv3 trainer: losses")
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+    fl = flips_only(sa, sb)
+    cfg = a["cfg"]
+    log(f"reduced dsv3 trainer ({cfg.n_layers} MLA layers, the first dense, "
+        f"{cfg.n_experts} experts top-{cfg.moe_top_k}, MTP coef "
+        f"{cfg.mtp_coef}, d_model {cfg.d_model}), float32, n = "
+        f"{cfg.n_nodes}, card == CPU: {int(sa['triggers'])} triggers, "
+        f"{sa['sync_rounds']} syncs, bits {float(sa['bits']):.6e} == "
+        f"reckoned {want_bits:.6e}; SignTopK launched "
+        f"{ca['sign_topk_blocks']} times, == its plain version on every "
+        f"tile of the last sync ({rec['tiles']} tiles, max abs err "
+        f"{rec['err']:.3e}); losses {a['losses']} (CPU {b['losses']}), "
+        f"largest relative gap {gap:.3e}; x_hat beyond 5e-4 on "
+        f"{fl['xhat_far']} entries; params gap {fl['params_gap']:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["dsv3_trainer"] = {"max_abs_err": rec["err"], "loss_gap": gap}
+    del runs, a, b, sa, sb
     torch.cuda.empty_cache()
     return out
 
@@ -1981,6 +2395,12 @@ def main() -> int:
     ssm_rec = phase_ssm(torch, dev, train, counts, zero_counts, read_counts)
     max_err = max([max_err] + [r["max_abs_err"] for r in ssm_rec.values()])
     log(f"phase 3l: {time.perf_counter() - t0:.1f} s")
+    # ------------------------------------ 3m. serving, and MLA with MTP
+    t0 = time.perf_counter()
+    serve_rec = phase_serve(torch, dev, train, counts, zero_counts,
+                            read_counts)
+    max_err = max(max_err, serve_rec["dsv3_trainer"]["max_abs_err"])
+    log(f"phase 3m: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------- 4. report
     def by_path(name):

@@ -228,8 +228,9 @@ def grad_views(row: torch.Tensor, grad_row: torch.Tensor,
     stack ``seg{i}`` is one tree per layer, so that backward never
     materializes a zero gradient of the whole stack per layer. A leaf
     outside the stacks (the embedding, the final norm, a hybrid's
-    ``shared_attn``) is one view, and backward adds the gradient of every
-    use of it into that view.
+    ``shared_attn``, the MTP head ``mtp``) is one view, and backward adds
+    the gradient of every use of it into that view: the embedding's holds
+    both the input's lookup and the MTP head's next-token lookup.
 
     With a ``dtype`` other than float32 (a bfloat16 ``param_dtype``) the
     tree holds each view cast to it, as the reference's ``unravel`` casts

@@ -3,8 +3,8 @@
 Re-declared here because importing ``repro.models.config`` runs
 ``repro/models/__init__.py``, which imports jax. The fields, defaults and
 ``reduced()`` are the reference's, so a configuration means the same thing
-in both packages; the port's model code runs the dense, MoE, SSM and hybrid
-families.
+in both packages; so are the serve workloads' ``InputShape`` and
+``INPUT_SHAPES``.
 """
 from __future__ import annotations
 
@@ -142,3 +142,23 @@ class ModelConfig:
             n_nodes=4,
             remat=False,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

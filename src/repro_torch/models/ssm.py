@@ -1,5 +1,5 @@
-"""Mamba2's SSD block for training (counterpart of the train part of
-``repro/models/ssm.py``, arXiv:2405.21060).
+"""Mamba2's SSD block (counterpart of ``repro/models/ssm.py``,
+arXiv:2405.21060).
 
 The chunked SSD algorithm: quadratic within a chunk, a linear recurrence
 across chunks. Grouped B and C (``ssm_groups``), multi-head x with head dim
@@ -11,8 +11,9 @@ as ``logaddexp(x, 0)``. The einsums and projections are ``torch.einsum`` and
 matrix products; the reference too computes them outside any Pallas kernel,
 so no kernel of the port is involved.
 
-The recurrent decode step (``init_ssm_cache``, ``ssm_decode``) is not
-ported yet (ROADMAP.md A.11.5).
+Decode is the one-token recurrence (``init_ssm_cache``, ``ssm_decode``):
+the state (B, H, P, N) in float32 and the conv's last K-1 inputs in the
+compute dtype; the cache does not grow with the context.
 """
 from __future__ import annotations
 
@@ -219,3 +220,58 @@ def ssm_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y = y.reshape(bsz, L, d_in).to(cd)
     y = rms_norm_vec(y * F.silu(z)) * p["norm_scale"].to(cd)
     return y @ p["w_out"].to(cd)
+
+
+# ------------------------------------------------------------------ decode
+
+def init_ssm_cache(cfg: ModelConfig, batch: int,
+                   n_layers: Optional[int] = None,
+                   device: torch.device | str = "cpu") -> Params:
+    """``state``: (L, B, H, P, N) float32; ``conv``: (L, B, K-1, C) in the
+    compute dtype; both zero."""
+    _, h, p_dim, _, n = _dims(cfg)
+    L = cfg.n_layers if n_layers is None else n_layers
+    cd = dtype_of(cfg.compute_dtype)
+    return {
+        "state": torch.zeros((L, batch, h, p_dim, n), dtype=torch.float32,
+                             device=device),
+        "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, conv_channels(cfg)),
+                            dtype=cd, device=device),
+    }
+
+
+def ssm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               state: torch.Tensor, conv_buf: torch.Tensor
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One-token recurrent update. x: (B, 1, D); state: (B, H, P, N);
+    conv_buf: (B, K-1, C). Returns the output (B, 1, D) and the new state
+    and conv window (new tensors; the caller stores them). The conv's
+    product over the K-window, which the reference takes in the compute
+    dtype, is taken in float32 and rounded once."""
+    cd = dtype_of(cfg.compute_dtype)
+    f32 = torch.float32
+    d_in, h, p_dim, g, n = _dims(cfg)
+    bsz = x.shape[0]
+    z, xbc, dt_raw = _split_proj(cfg, x[:, 0] @ p["w_in"].to(cd))
+    window = torch.cat([conv_buf, xbc[:, None, :]], dim=1)       # (B,K,C)
+    conv_out = torch.einsum("bkc,kc->bc", window.to(f32),
+                            p["conv_w"].to(cd).to(f32)).to(cd)
+    xbc = F.silu(conv_out + p["conv_b"].to(cd))
+    new_conv = window[:, 1:]
+    xs, b, c = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
+    xs = xs.reshape(bsz, h, p_dim).to(f32)
+    # "b (g n) -> b (g r) n": each group's row repeated for its r heads
+    b = b.reshape(bsz, g, n).repeat_interleave(h // g, dim=1).to(f32)
+    c = c.reshape(bsz, g, n).repeat_interleave(h // g, dim=1).to(f32)
+    u = dt_raw.to(f32) + p["dt_bias"].to(f32)
+    dt = torch.logaddexp(u, torch.zeros((), dtype=f32, device=u.device))
+    a_neg = -torch.exp(p["a_log"].to(f32))
+    decay = torch.exp(dt * a_neg[None, :])                       # (B,H)
+    new_state = (state * decay[..., None, None]
+                 + torch.einsum("bh,bhp,bhn->bhpn", dt, xs, b))
+    y = torch.einsum("bhpn,bhn->bhp", new_state, c)
+    y = y + xs * p["d_skip"].to(f32)[None, :, None]
+    y = y.reshape(bsz, d_in).to(cd)
+    y = rms_norm_vec(y * F.silu(z)) * p["norm_scale"].to(cd)
+    out = (y @ p["w_out"].to(cd))[:, None, :]
+    return out, (new_state, new_conv)

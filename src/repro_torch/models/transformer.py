@@ -19,7 +19,17 @@ each block runs under ``torch.utils.checkpoint``, as ``jax.checkpoint``
 wraps the scan body (``transformer.py:179``); a hybrid layer's body holds
 its SSM block and, where it applies, the shared block.
 
-MLA, MTP and decoding are not ported yet.
+With ``use_mla`` (deepseek-v3-671b) every block's attention is MLA
+(:func:`repro_torch.models.attention.mla_forward`); with ``use_mtp`` the tree
+has an ``mtp`` head {``proj``, ``block``, ``norm``}, one more dense block over
+``[h_t ; emb(x_{t+1})]`` predicting ``x_{t+2}``, whose loss joins
+:func:`lm_loss` times ``mtp_coef``.
+
+Decoding (:func:`init_cache`, :func:`decode_step`) runs one token through
+the whole stack against a cache: per-layer KV or MLA slices across the
+segments, the SSM stack's state and conv window, and the hybrid's shared
+block with one KV cache per use. The reference's ``lax.scan`` and
+``lax.cond`` are a Python loop here; the cache is written in place.
 """
 from __future__ import annotations
 
@@ -52,15 +62,6 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return [("dense", cfg.n_layers)]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    waiting = [name for name, hit in (
-        ("MLA", cfg.use_mla), ("MTP", cfg.use_mtp)) if hit]
-    if waiting:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(waiting)} not ported yet (ROADMAP.md "
-            f"A.11; the port runs the dense, MoE, SSM and hybrid families)")
-
-
 def _norm_shapes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Params:
     norm = {"scale": lead + (cfg.d_model,)}
     if cfg.norm == "layernorm":
@@ -68,14 +69,19 @@ def _norm_shapes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Params:
     return norm
 
 
-def _attn_mlp_shapes(cfg: ModelConfig, lead: Tuple[int, ...]) -> Params:
+def _attn_mlp_shapes(cfg: ModelConfig, lead: Tuple[int, ...],
+                     mla: bool = False) -> Params:
     """An attention block's leaves (``attn``, ``mlp``, ``norm1``,
-    ``norm2``), each with the leading dims ``lead``."""
+    ``norm2``), each with the leading dims ``lead``; ``attn`` is MLA's with
+    ``mla``."""
     d, f = cfg.d_model, cfg.d_ff
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    a = {"wq": lead + (d, h * hd), "wk": lead + (d, kv * hd),
-         "wv": lead + (d, kv * hd), "wo": lead + (h * hd, d)}
-    if cfg.qkv_bias:
+    if mla:
+        a = {k: lead + v for k, v in attn.mla_shapes(cfg).items()}
+    else:
+        a = {"wq": lead + (d, h * hd), "wk": lead + (d, kv * hd),
+             "wv": lead + (d, kv * hd), "wo": lead + (h * hd, d)}
+    if cfg.qkv_bias and not mla:
         a.update(bq=lead + (h * hd,), bk=lead + (kv * hd,),
                  bv=lead + (kv * hd,))
     mlp = {"w_in": lead + (d, f), "w_out": lead + (f, d)}
@@ -92,7 +98,7 @@ def _block_shapes(cfg: ModelConfig, kind: str, L: int) -> Params:
     if kind in ("ssm", "hybrid"):
         return {"norm": _norm_shapes(cfg, (L,)),
                 "ssm": {k: (L,) + v for k, v in ssm.param_shapes(cfg).items()}}
-    out = _attn_mlp_shapes(cfg, (L,))
+    out = _attn_mlp_shapes(cfg, (L,), mla=cfg.use_mla)
     if kind == "moe":
         del out["mlp"]
         out["moe"] = {k: (L,) + v for k, v in moe.param_shapes(cfg).items()}
@@ -102,7 +108,6 @@ def _block_shapes(cfg: ModelConfig, kind: str, L: int) -> Params:
 def param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree as nested dicts of shapes (the reference's
     ``jax.eval_shape(init_params)``)."""
-    _check_ported(cfg)
     d = cfg.d_model
     embed = {"embedding": (cfg.vocab_size, d)}
     if not cfg.tie_embeddings:
@@ -115,6 +120,10 @@ def param_shapes(cfg: ModelConfig) -> Params:
         out[f"seg{si}"] = _block_shapes(cfg, kind, n)
     if cfg.family == "hybrid":
         out["shared_attn"] = _attn_mlp_shapes(cfg, ())
+    if cfg.use_mtp:
+        out["mtp"] = {"proj": (2 * d, d),
+                      "block": _attn_mlp_shapes(cfg, (), mla=cfg.use_mla),
+                      "norm": _norm_shapes(cfg, ())}
     return out
 
 
@@ -123,19 +132,26 @@ def init_keys(cfg: ModelConfig, key: torch.Tensor
     """The reference's threefry key of every drawn leaf, hashed on the host:
     ``split(key, 8)``; the embedding and LM head from ``split(keys[0])``;
     segment i's layers from ``split(fold_in(keys[2], i), n_i)``, each block
-    ``split(k, 6)`` with the attention in ``split(ks[2], 4)`` and the MLP in
-    ``split(ks[3], 3)`` or the MoE in ``split(ks[3], 7)``, or an SSM block's
-    ``init_ssm`` in ``split(ks[1], 5)``; the hybrid's shared attention from
-    ``split(keys[5], 4)`` and its MLP from ``split(keys[6], 3)``. A stacked
-    leaf's entry holds one key per layer, (n_i, 2)."""
-    _check_ported(cfg)
+    ``split(k, 6)`` with the attention in ``split(ks[2], 4)`` (MLA's in
+    ``split(ks[2], 8)``) and the MLP in ``split(ks[3], 3)`` or the MoE in
+    ``split(ks[3], 7)``, or an SSM block's ``init_ssm`` in ``split(ks[1],
+    5)``; the hybrid's shared attention from ``split(keys[5], 4)`` and its
+    MLP from ``split(keys[6], 3)``; the MTP head from ``split(keys[7], 3)``:
+    ``proj``, then a dense block from ``split(k7[1], 6)``. A stacked leaf's
+    entry holds one key per layer, (n_i, 2)."""
     keys = prng.split(key.cpu(), 8)
     k_embed = prng.split(keys[0])
     out = {("embed", "embedding"): k_embed[0]}
     if not cfg.tie_embeddings:
         out[("embed", "lm_head")] = k_embed[1]
 
-    def attn_keys(prefix, k):
+    def attn_keys(prefix, k, mla=False):
+        if mla:
+            ka = prng.split(k, 8)
+            for name in attn.mla_shapes(cfg):
+                out[prefix + ("attn", name)] = \
+                    ka[..., attn.MLA_KEY_INDEX[name], :]
+            return
         ka = prng.split(k, 4)
         for i, name in enumerate(("wq", "wk", "wv", "wo")):
             out[prefix + ("attn", name)] = ka[..., i, :]
@@ -153,7 +169,7 @@ def init_keys(cfg: ModelConfig, key: torch.Tensor
             for name, k in ssm.init_keys(cfg, blocks[:, 1]).items():
                 out[(seg, "ssm", name)] = k
             continue
-        attn_keys((seg,), blocks[:, 2])
+        attn_keys((seg,), blocks[:, 2], cfg.use_mla)
         if kind == "moe":
             for name, k in moe.init_keys(cfg, blocks[:, 3]).items():
                 out[(seg, "moe", name)] = k
@@ -162,6 +178,12 @@ def init_keys(cfg: ModelConfig, key: torch.Tensor
     if cfg.family == "hybrid":
         attn_keys(("shared_attn",), keys[5])
         mlp_keys(("shared_attn",), keys[6])
+    if cfg.use_mtp:
+        k7 = prng.split(keys[7], 3)
+        out[("mtp", "proj")] = k7[0]
+        kb = prng.split(k7[1], 6)
+        attn_keys(("mtp", "block"), kb[2], cfg.use_mla)
+        mlp_keys(("mtp", "block"), kb[3])
     return out
 
 
@@ -185,7 +207,6 @@ def init_params(cfg: ModelConfig, key: torch.Tensor,
     tree of tensors of :func:`param_shapes` (e.g. views of one row of a flat
     buffer), each layer's draw is written into its slice of the stacked leaf
     and ``out`` is returned."""
-    _check_ported(cfg)
     dt = dtype_of(cfg.param_dtype)
     if out is None:
         def empty(tree):
@@ -225,10 +246,12 @@ def _tree_items(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any],
-                    device: torch.device | str = "cpu") -> Params:
+                    device: torch.device | str = "cpu",
+                    dtype: torch.dtype = torch.float32) -> Params:
     """The reference's parameters, given as a nested dict of numpy arrays,
-    as the port's tree of float32 tensors on ``device``. Keys and shapes are
-    checked against :func:`param_shapes`."""
+    as the port's tree of ``dtype`` tensors on ``device`` (float32 by
+    default; ``dtype_of(cfg.param_dtype)`` serves a bfloat16 model in
+    bfloat16). Keys and shapes are checked against :func:`param_shapes`."""
     def walk(shapes, sub, path):
         if set(shapes) != set(sub):
             raise ValueError(f"{path or 'params'}: keys {sorted(sub)} != "
@@ -241,7 +264,7 @@ def params_from_jax(cfg: ModelConfig, tree: Mapping[str, Any],
             arr = np.asarray(sub[k], dtype=np.float32)
             if tuple(arr.shape) != tuple(want):
                 raise ValueError(f"{path}/{k}: shape {arr.shape} != {want}")
-            out[k] = torch.tensor(arr, device=device)
+            out[k] = torch.tensor(arr, device=device).to(dtype)
         return out
     return walk(param_shapes(cfg), tree, "")
 
@@ -251,10 +274,17 @@ def _layer(tree: Params, i: int) -> Params:
             for k, v in tree.items()}
 
 
+def _attention(cfg: ModelConfig, p: Params, h: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    if cfg.use_mla:
+        return attn.mla_forward(cfg, p, h, positions)
+    return attn.attention_forward(cfg, p, h, positions)
+
+
 def _dense_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg, bp["norm1"], x)
-    x = x + attn.attention_forward(cfg, bp["attn"], h, positions)
+    x = x + _attention(cfg, bp["attn"], h, positions)
     h2 = apply_norm(cfg, bp["norm2"], x)
     return x + apply_mlp(cfg, bp["mlp"], h2)
 
@@ -262,7 +292,7 @@ def _dense_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
 def _moe_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     h = apply_norm(cfg, bp["norm1"], x)
-    x = x + attn.attention_forward(cfg, bp["attn"], h, positions)
+    x = x + _attention(cfg, bp["attn"], h, positions)
     h2 = apply_norm(cfg, bp["norm2"], x)
     y, aux = moe.moe_forward(cfg, bp["moe"], h2)
     return x + y, aux
@@ -284,6 +314,16 @@ def _hybrid_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
     return x if shared is None else _dense_block(cfg, shared, x, positions)
 
 
+def _stack_layers(seg: Any, n: int) -> List[Params]:
+    """A segment as per-layer trees: a stacked tree, or already a list of
+    per-layer trees (the flat engine's: one leaf per layer, so that
+    backward never materializes a zero gradient of the whole stack per
+    layer)."""
+    if isinstance(seg, (list, tuple)):
+        return list(seg)
+    return [_layer(seg, i) for i in range(n)]
+
+
 def forward_hidden(cfg: ModelConfig, params: Params,
                    tokens: Optional[torch.Tensor] = None,
                    embeds: Optional[torch.Tensor] = None
@@ -292,7 +332,6 @@ def forward_hidden(cfg: ModelConfig, params: Params,
     precomputed frontend embeddings (the audio and VLM configs' stub) ->
     (final-normed hidden (B, S, D) in the compute dtype, the MoE layers'
     summed aux loss, float32)."""
-    _check_ported(cfg)
     if embeds is not None:
         x = embeds.to(dtype_of(cfg.compute_dtype))
     else:
@@ -300,12 +339,7 @@ def forward_hidden(cfg: ModelConfig, params: Params,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (kind, n) in enumerate(segments(cfg)):
-        seg = params[f"seg{si}"]
-        # a stacked tree, or a list of per-layer trees (the flat engine's:
-        # one leaf per layer, so that backward never materializes a zero
-        # gradient of the whole stack per layer)
-        blocks = (seg if isinstance(seg, (list, tuple))
-                  else [_layer(seg, i) for i in range(n)])
+        blocks = _stack_layers(params[f"seg{si}"], n)
         block = {"moe": _moe_block, "ssm": _ssm_block,
                  "hybrid": _hybrid_block}.get(kind, _dense_block)
         auxs = []
@@ -340,6 +374,19 @@ def forward(cfg: ModelConfig, params: Params,
     return lm_logits(cfg, params["embed"], h), aux
 
 
+def mtp_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+               h_final: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's MTP head: position i predicts ``tokens[i + 2]``.
+    h_final: (B, S, D) final-normed hidden states -> (B, S - 1, D)."""
+    mp = params["mtp"]
+    cd = dtype_of(cfg.compute_dtype)
+    emb_next = embed_tokens(cfg, params["embed"], tokens[:, 1:])
+    h = torch.cat([h_final[:, :-1], emb_next], dim=-1) @ mp["proj"].to(cd)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    h = _dense_block(cfg, mp["block"], h, positions)
+    return apply_norm(cfg, mp["norm"], h)
+
+
 def _ce_sum(cfg: ModelConfig, embed_params: Params, h: torch.Tensor,
             labels: torch.Tensor) -> torch.Tensor:
     logits = lm_logits(cfg, embed_params, h).to(torch.float32)
@@ -368,13 +415,110 @@ def chunked_ce(cfg: ModelConfig, embed_params: Params, h: torch.Tensor,
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: Mapping[str, Any]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE, plus ``router_aux_coef * aux`` for a MoE config.
-    batch: tokens (B, S) or embeds (B, S, D), and labels (B, S)."""
-    hidden, aux = forward_hidden(cfg, params, batch.get("tokens"),
+    """Next-token CE, plus ``router_aux_coef * aux`` for a MoE config and
+    ``mtp_coef`` times the MTP head's CE on ``labels[:, 2:]`` with
+    ``use_mtp``. batch: tokens (B, S) or embeds (B, S, D), and labels
+    (B, S)."""
+    tokens, labels = batch.get("tokens"), batch["labels"]
+    hidden, aux = forward_hidden(cfg, params, tokens,
                                  embeds=batch.get("embeds"))
-    loss = chunked_ce(cfg, params["embed"], hidden, batch["labels"])
+    loss = chunked_ce(cfg, params["embed"], hidden, labels)
     metrics = {"ce": loss, "aux": aux}
     if cfg.n_experts:
         loss = loss + cfg.router_aux_coef * aux
+    if cfg.use_mtp:
+        mh = mtp_hidden(cfg, params, tokens, hidden)          # (B, S-1, D)
+        mtp_loss = chunked_ce(cfg, params["embed"], mh[:, :-1], labels[:, 2:])
+        metrics["mtp"] = mtp_loss
+        loss = loss + cfg.mtp_coef * mtp_loss
     metrics["loss"] = loss
     return loss, metrics
+
+
+# ------------------------------------------------------------------ decode
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: torch.device | str = "cpu") -> Params:
+    """The decode cache, the reference's tree: ``cache_len`` is the full
+    context under full attention, the window under a sliding window. The SSM
+    stack holds ``ssm`` {state, conv}; the hybrid adds ``attn``, one KV
+    cache per use of its shared block; MLA holds ``mla`` {ckv, kr, pos},
+    every other config ``kv`` {k, v, pos}. ``device="meta"`` gives the
+    shapes and dtypes without memory."""
+    if cfg.family == "ssm":
+        return {"ssm": ssm.init_ssm_cache(cfg, batch, device=device)}
+    if cfg.family == "hybrid":
+        n_apps = cfg.n_layers // cfg.attn_every
+        return {"ssm": ssm.init_ssm_cache(cfg, batch, device=device),
+                "attn": attn.init_kv_cache(cfg, batch, cache_len,
+                                           n_layers=n_apps, device=device)}
+    if cfg.use_mla:
+        return {"mla": attn.init_mla_cache(cfg, batch, cache_len,
+                                           device=device)}
+    return {"kv": attn.init_kv_cache(cfg, batch, cache_len, device=device)}
+
+
+def _decode_attn_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
+                       kv: Params, pos: int) -> torch.Tensor:
+    """norm1, cached attention on one layer's cache slice ``kv`` (written
+    in place), norm2, then the MLP or the MoE."""
+    h = apply_norm(cfg, bp["norm1"], x)
+    if cfg.use_mla:
+        o, _ = attn.mla_decode(cfg, bp["attn"], h, kv["ckv"], kv["kr"],
+                               kv["pos"], pos)
+    else:
+        o, _ = attn.decode_attention(cfg, bp["attn"], h, kv["k"], kv["v"],
+                                     kv["pos"], pos)
+    x = x + o
+    h2 = apply_norm(cfg, bp["norm2"], x)
+    if "moe" in bp:
+        return x + moe.moe_forward(cfg, bp["moe"], h2)[0]
+    return x + apply_mlp(cfg, bp["mlp"], h2)
+
+
+def _ssm_decode_layer(cfg: ModelConfig, bp: Params, x: torch.Tensor,
+                      sc: Params, li: int) -> torch.Tensor:
+    hh = apply_norm(cfg, bp["norm"], x)
+    o, (st, cv) = ssm.ssm_decode(cfg, bp["ssm"], hh, sc["state"][li],
+                                 sc["conv"][li])
+    sc["state"][li].copy_(st)
+    sc["conv"][li].copy_(cv)
+    return x + o
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params,
+                tokens: Optional[torch.Tensor], pos: int,
+                embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    """One decode step for the whole stack. tokens: (B, 1), or ``embeds``
+    (B, 1, D) for the audio and VLM configs; pos: the token's absolute
+    position. Returns (logits (B, 1, V), ``cache``), its tensors written in
+    place: they now hold the reference's new cache."""
+    pos = int(pos)
+    if embeds is not None:
+        x = embeds.to(dtype_of(cfg.compute_dtype))
+    else:
+        x = embed_tokens(cfg, params["embed"], tokens)
+    if cfg.family in ("ssm", "hybrid"):
+        sc = cache["ssm"]
+        every = cfg.attn_every
+        for li, bp in enumerate(_stack_layers(params["seg0"],
+                                              cfg.n_layers)):
+            x = _ssm_decode_layer(cfg, bp, x, sc, li)
+            if cfg.family == "hybrid" and li % every == every - 1:
+                app = li // every
+                kv = {k: v[app] for k, v in cache["attn"].items()}
+                x = _decode_attn_block(cfg, params["shared_attn"], x, kv,
+                                       pos)
+    else:
+        # dense and MoE: the segments' layers in order, each on its slice
+        # of the one stacked cache
+        cc = cache["mla" if cfg.use_mla else "kv"]
+        li = 0
+        for si, (_, n) in enumerate(segments(cfg)):
+            for bp in _stack_layers(params[f"seg{si}"], n):
+                kv = {k: v[li] for k, v in cc.items()}
+                x = _decode_attn_block(cfg, bp, x, kv, pos)
+                li += 1
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params["embed"], x), cache

@@ -34,6 +34,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.flatten_util import ravel_pytree  # noqa: E402
 
+from repro.configs import registry as jreg  # noqa: E402
 from repro.configs.registry import get_config as jget  # noqa: E402
 from repro.core import schedule as jsched  # noqa: E402
 from repro.core import triggers as jtrig  # noqa: E402
@@ -57,8 +58,7 @@ from repro_torch.models import transformer as ttf  # noqa: E402
 
 ARCHS = ("qwen1.5-0.5b", "minitron-4b", "stablelm-1.6b", "qwen1.5-32b",
          "musicgen-large", "chameleon-34b", "deepseek-moe-16b",
-         "mamba2-370m", "zamba2-7b")
-WAITING = ("deepseek-v3-671b",)
+         "mamba2-370m", "zamba2-7b", "deepseek-v3-671b")
 # three layers: deepseek-moe-16b's seg1 then stacks two MoE blocks
 SMALL = dict(n_layers=3, d_model=128, vocab=256)
 # four for the hybrid: reduced() sets attn_every = 2, so the shared block
@@ -114,12 +114,10 @@ def _f32(tree):
 
 
 def test_registry_serves_seven_archs_and_refuses_the_rest():
-    """Since the SSM and hybrid blocks are ported the registry serves nine
-    archs; deepseek-v3-671b waits for MLA and MTP."""
-    assert set(registry.ARCH_IDS) == set(ARCHS) and len(ARCHS) == 9
-    for arch in WAITING:
-        with pytest.raises(ValueError, match="A.11"):
-            registry.get_config(arch)
+    """Since MLA and MTP are ported the registry serves all ten of the
+    reference's archs, in its order; an unknown arch is refused."""
+    assert set(registry.ARCH_IDS) == set(ARCHS) and len(ARCHS) == 10
+    assert registry.ARCH_IDS == jreg.ARCH_IDS
     with pytest.raises(ValueError, match="unknown arch"):
         registry.get_config("gpt-2")
 
@@ -237,7 +235,8 @@ def test_loss_and_grads_tight_with_float32_scores(float32_scores, arch,
                                                   monkeypatch):
     """Each config's loss, aux and gradients at reduced width in float32;
     musicgen-large through ``embeds``, chameleon-34b with its qk-norm, the
-    MoE config with the routing of every layer equal exactly."""
+    MoE configs with the routing of every layer equal exactly (deepseek-
+    v3-671b with MLA and its MTP term)."""
     jc, tc = _cfgs(arch, compute_dtype="float32")
     pn = _f32(jtf.init_params(jc, jax.random.PRNGKey(1)))
     batch = _batch(jc, embeds=arch == "musicgen-large")
@@ -270,7 +269,7 @@ def test_loss_and_grads_tight_with_float32_scores(float32_scores, arch,
                else leaf.grad.numpy())
         err = float(np.max(np.abs(got - want[path])))
         assert err <= 1e-5 * float(np.max(np.abs(want[path]))), (path, err)
-    if arch == "deepseek-moe-16b":
+    if tc.n_experts:
         jt = _jax_route_tables(jc, jp, jb)
         assert len(tables) == len(jt) == 2
         for a, b in zip(tables, jt, strict=True):

@@ -63,8 +63,12 @@ def test_config_equals_reference_field_for_field():
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert dataclasses.asdict(j.reduced(**SMALL)) == \
         dataclasses.asdict(t.reduced(**SMALL))
-    with pytest.raises(ValueError):
-        tget("deepseek-v3-671b")
+    # every reference config is served, field for field; an unknown arch
+    # is still refused
+    assert dataclasses.asdict(tget("deepseek-v3-671b")) == \
+        dataclasses.asdict(jget("deepseek-v3-671b"))
+    with pytest.raises(ValueError, match="unknown arch"):
+        tget("gpt-2")
 
 
 def test_params_from_jax_bit_for_bit():
@@ -214,20 +218,31 @@ def test_remat_changes_nothing():
 
 
 def test_unported_families_raise():
-    """The MoE, SSM and hybrid families are ported and every model entry
-    takes them; the MLA and MTP blocks are not, and every entry refuses
-    them."""
-    _, tc = _cfgs()
+    """Every family is ported and every model entry takes it: MLA and MTP
+    (alone or together) return the reference's shapes, and their keys
+    cover every drawn leaf; the MoE, SSM and hybrid families likewise."""
+    jc, tc = _cfgs()
 
     def entries(c):
         return (ttf.param_shapes(c),
                 ttf.init_keys(c, torch.zeros(2, dtype=torch.int64)))
-    for kw in (dict(use_mla=True), dict(use_mtp=True)):
+    for kw in (dict(use_mla=True), dict(use_mtp=True),
+               dict(use_mla=True, use_mtp=True, q_lora_rank=32)):
         c = dataclasses.replace(tc, **kw)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ttf.param_shapes(c)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ttf.init_keys(c, torch.zeros(2, dtype=torch.int64))
+        shapes, keys = entries(c)
+        want = jax.tree.map(lambda s: tuple(s.shape), jax.eval_shape(
+            lambda k, c=dataclasses.replace(jc, **kw): jtf.init_params(c, k),
+            jax.random.PRNGKey(0)))
+        assert shapes == want
+        drawn = {p for p, _ in _walk(shapes) if p[-1] not in (
+            "scale", "bias", "bq", "bk", "bv")}
+        assert set(keys) == drawn
+        if c.use_mla:
+            assert ("seg0", "attn", "w_uk") in keys
+            assert ("seg0", "attn", "wq") not in keys
+        if c.use_mtp:
+            assert ("mtp", "proj") in keys and set(shapes["mtp"]) == {
+                "proj", "block", "norm"}
     shapes, keys = entries(dataclasses.replace(tc, family="ssm",
                                                ssm_state=16))
     assert set(shapes) == {"embed", "final_norm", "seg0"}
