@@ -22,8 +22,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       every 3 (SignTopK); then 3 more steps of the run profiled, whose
       sync's real diff is kept, and the kernel timed on that diff and held
       against its plain version on every tile of it;
-   b. the faulty, time-varying trainer at the same full width: a random
-      matchings plan of 4 rounds, 30 % link drop, node 1 straggling half
+   b. the faulty, time-varying trainer at the same full width, cut to
+      depth 8 of 24 (the smoke's time limit): a random matchings plan of
+      4 rounds, 30 % link drop, node 1 straggling half
       its steps, node 2 offline for steps 1-3 (SignTopK once per sync);
       every sync's repaired matrix, degrees and liveness held against the
       plan's own repair on the host, and the bits against the reckoning
@@ -51,9 +52,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       transient peak; the card's uniform bits of the first 2^20 values of
       the embedding and of every layer's ``wo`` equal to a numpy draw on the
       host, and the values within 4 ulps of the host's truncated normals;
-   i. checkpoint and resume at full width through the kernel (the main
-      path's flags and momentum 0.9): 6 unbroken steps saving at step 4,
-      then ``--resume`` from step 4 across the sync of t = 6; the files
+   i. checkpoint and resume at full width, cut to depth 8 of 24, through
+      the kernel (the main path's flags and momentum 0.9): 6 unbroken steps
+      saving at step 4, then ``--resume`` from step 4 across the sync of
+      t = 6; the files
       read back chunk by chunk against the live buffers after the save and
       after the restore (bit for bit), and the resumed run's final state
       (kept on the host) against a repeat of the unbroken run's: integer
@@ -112,6 +114,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       and deepseek-v3-671b's reduced trainer with its MTP loss on the card
       against the CPU (6 steps, SignTopK twice and held against its plain
       version, bits against the reckoning, losses within 1e-4);
+   n. sharding (``dist/sharding.py``, ``dist/comm.py``, the engine over a
+      ``(node, fsdp, model)`` mesh): four ranks share the card over gloo
+      (their rows staged through pinned host buffers) and train
+      qwen1.5-0.5b at full width and depth through the train entry with
+      phase a's flags and ``--devices 4``, one node per rank: per-step
+      losses, bits and triggers and a checksum of every row of params and
+      x_hat equal phase a's, SignTopK held against its plain version on
+      each rank's tiles at the last sync, per-rank s/step, exchange seconds
+      per sync and peak memory; then at reduced width: the engine under an
+      NCCL group of one rank equal to the unsharded card run bit for bit;
+      (node 2, fsdp 2) over four ranks against one process (bits and
+      triggers exactly, params up to boundary flips); the faulty
+      time-varying trainer over two ranks, mixing through the row gather,
+      equal to one process bit for bit; a checkpoint saved at
+      ``--devices 4``, restored in one process and continued, equal to the
+      unbroken run bit for bit; and the serve builders over a (data 2,
+      model 1) mesh against one process in float32;
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -170,6 +189,9 @@ FAULT_FLAGS = ["--dynamic", "matchings", "--dynamic-rounds", "4",
 FAULT_ARGS = MAIN_ARGS + FAULT_FLAGS
 # phase 3i: the main path's flags with momentum, so the opt rows are real
 CKPT_ARGS = MAIN_ARGS + ["--momentum", "0.9"]
+# the depth of 24 that phases 3b and 3i keep, to hold the smoke inside its
+# time limit (the main path, 3a and 3n, keeps all 24 layers)
+CUT_DEPTH = 8
 ULPS = 4           # x^0 against the host's draw (tests/test_torch_init.py)
 LM_RTOL = 1e-3     # LM rows, card against CPU (tests/test_torch_suites.py)
 # the generic path: no --use-kernel, one sync in 3 steps
@@ -524,14 +546,16 @@ def _opt_keys(state):
 
 
 def phase_ckpt(torch, dev, train, counts, zero_counts, read_counts) -> None:
-    """3i: the full-width trainer with momentum, saved at step 4 of 6 and
-    resumed from there across the sync of t = 6. The phase writes one
-    full-width checkpoint (29.7 GB) and not two, to keep the run's disk
-    writes under 45 GiB, and the card cannot hold two trainers' states; so
-    the resumed run's final state is kept on the host and the unbroken run
-    is repeated (no checkpoint) to compare with it, after its counters were
-    checked against the first."""
+    """3i: the full-width trainer with momentum at depth ``CUT_DEPTH`` of
+    24, saved at step 4 of 6 and resumed from there across the sync of t =
+    6. The phase writes one full-width checkpoint (29.7 GB at all 24 layers)
+    and not two, to keep the run's disk writes under 45 GiB, and the card
+    cannot hold two trainers' states; so the resumed run's final state is
+    kept on the host and the unbroken run is repeated (no checkpoint) to
+    compare with it, after its counters were checked against the first."""
+    import dataclasses
     tmp = tempfile.mkdtemp(prefix="sparq_ckpt_")
+    cut = ArchRegistry(lambda c: dataclasses.replace(c, n_layers=CUT_DEPTH))
     try:
         du = shutil.disk_usage(tmp)
         log(f"checkpoint: {tmp} on a disk of {du.total / 1e9:.1f} GB, "
@@ -556,7 +580,9 @@ def phase_ckpt(torch, dev, train, counts, zero_counts, read_counts) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         zero_counts()
-        r1 = train.run(args + ["--ckpt-every", "4"], on_checkpoint=read_back)
+        with cut:
+            r1 = train.run(args + ["--ckpt-every", "4"],
+                           on_checkpoint=read_back)
         counts["ckpt_unbroken"] = read_counts()
         peak1 = torch.cuda.max_memory_allocated(dev) / 1e9
         if [s["step"] for s in r1["saves"]] != [4]:
@@ -567,7 +593,8 @@ def phase_ckpt(torch, dev, train, counts, zero_counts, read_counts) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         zero_counts()
-        r2 = train.run(args + ["--resume"], on_checkpoint=read_back)
+        with cut:
+            r2 = train.run(args + ["--resume"], on_checkpoint=read_back)
         counts["ckpt_resumed"] = read_counts()
         peak2 = torch.cuda.max_memory_allocated(dev) / 1e9
         rest = r2["restore"]
@@ -585,7 +612,8 @@ def phase_ckpt(torch, dev, train, counts, zero_counts, read_counts) -> None:
         del r2
         shutil.rmtree(tmp)
         torch.cuda.empty_cache()
-        r3 = train.run(CKPT_ARGS)
+        with cut:
+            r3 = train.run(CKPT_ARGS)
         if counters(r3["state"]) != want:
             raise AssertionError(f"unbroken again: {counters(r3['state'])} "
                                  f"!= {want}")
@@ -599,7 +627,8 @@ def phase_ckpt(torch, dev, train, counts, zero_counts, read_counts) -> None:
             verdict = "bit for bit"
         cmp_s = time.perf_counter() - t0
         rest_steps = steps1[1:]
-        log(f"checkpoint, unbroken run: save at step 4 of {save['gb']:.3f} "
+        log(f"checkpoint, unbroken run at depth {CUT_DEPTH} of 24: save at "
+            f"step 4 of {save['gb']:.3f} "
             f"GB in {save['s']:.2f} s ({save['gb'] / save['s']:.2f} GB/s), "
             f"host peak RSS {save['host_rss_gb']:.2f} GB; s/step "
             f"{[round(v, 4) for v in steps1]}, steps 2..6 mean "
@@ -1315,7 +1344,7 @@ def serve_run(torch, dev, cfg, batch, prompt_len, cache_len, steps,
     x0_s = time.perf_counter() - t0
     toks = torch.tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, prompt_len)), device=dev)
-    prefill, decode = build_prefill(cfg, dev), build_decode(cfg, dev)
+    (prefill, _), (decode, _) = build_prefill(cfg, dev), build_decode(cfg, dev)
     pre_s = []
     for _ in range(2):
         _sync(torch, dev)
@@ -1381,7 +1410,7 @@ def reduced_decode_pair(torch, dev, arch, steps=16):
     for where in (dev, torch.device("cpu")):
         params = host if where.type == "cpu" else _to(host, where)
         cache = init_cache(cfg, 2, steps, device=where)
-        decode = build_decode(cfg, where)
+        decode, _ = build_decode(cfg, where)
         tok, logits, toks = first.to(where), [], []
         for t in range(steps):
             lg, cache = decode(params, cache, tok, None, t)
@@ -1470,7 +1499,7 @@ def phase_serve(torch, dev, train, counts, zero_counts, read_counts):
     r = run("qwen", qwen, 4, 2048, 4096, 32)
     params, cache = r.pop("params"), r.pop("cache")
     del r
-    decode = build_decode(qwen, dev)
+    decode, _ = build_decode(qwen, dev)
 
     def decode_window(cache, first):
         """3 more decode steps on ``cache``, to be profiled."""
@@ -1534,7 +1563,7 @@ def phase_serve(torch, dev, train, counts, zero_counts, read_counts):
     cache = init_cache(swa, shape.global_batch, clen, device=dev)
     toks = torch.randint(0, qwen.vocab_size, (1, 16), device=dev)
     zero_counts()
-    ms, lg = timed_decode(torch, dev, build_decode(swa, dev), params, cache,
+    ms, lg = timed_decode(torch, dev, build_decode(swa, dev)[0], params, cache,
                           toks, range(p0, p0 + 16))
     counts["serve_qwen_long_500k"] = read_counts()
     pos = cache["kv"]["pos"][0].tolist()
@@ -1661,6 +1690,363 @@ def phase_serve(torch, dev, train, counts, zero_counts, read_counts):
     del runs, a, b, sa, sb
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------ 3n. sharding
+# the main path's flags over four ranks on the one card; the reduced runs
+SHARD_ARGS = MAIN_ARGS + ["--devices", "4"]
+SHARD_TIMEOUT_S = 240.0      # every group's and every join's deadline
+# a row's checksum: the sum over its float32 bit patterns v_j, as int64,
+# of v_j * w_j with odd per-position weights w_j = (j * M + A) | 1, in
+# wrapping int64 arithmetic: an integer sum is the same in any order, and a
+# change of one element always changes it (w_j is odd, so invertible
+# modulo 2^64)
+CHECKSUM_M = -7046029254386353131       # 0x9E3779B97F4A7C15 as int64
+CHECKSUM_A = 1442695040888963407
+SERVE_SHARD_RTOL = 1e-5    # data-sharded serve against one process, float32
+
+
+def row_checksums(torch, buf, chunk=1 << 22):
+    """One :data:`CHECKSUM_M` checksum per row of a float32 ``(rows, D)``
+    buffer, computed on its device a column chunk at a time."""
+    out = []
+    for row in buf:
+        h = torch.zeros((), dtype=torch.int64, device=row.device)
+        for lo in range(0, row.numel(), chunk):
+            v = row[lo:lo + chunk].view(torch.int32).to(torch.int64)
+            w = torch.arange(lo, lo + v.numel(), dtype=torch.int64,
+                             device=row.device) * CHECKSUM_M + CHECKSUM_A
+            h += (v * (w | 1)).sum()
+        out.append(int(h))
+    return out
+
+
+def _host_rows(state):
+    return {k: state[k].detach().cpu() for k in ("params", "x_hat")}
+
+
+def _shard_full_rank(rank, argv, k_b):
+    """Phase 3n run 1, one rank: the train entry over the process group,
+    SignTopK held against its plain version on this rank's tiles at the
+    last sync (those launches not counted), row checksums, peak memory."""
+    import torch
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.sign_topk import BLOCK, sign_topk_blocks
+    from repro_torch.launch import train
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.reset_peak_memory_stats(dev)
+    check = {}
+
+    def at_sync(diff, info):
+        if info["t"] == 5:                  # the last sync of 6 steps, H 3
+            before = sign_topk_blocks.launches
+            t0 = time.perf_counter()
+            check["err"] = parity.check_sign_topk_chunked(
+                diff.view(-1, BLOCK), k_b, PLAIN_ROWS,
+                spec=f"rank {rank} last sync")
+            check["s"] = time.perf_counter() - t0
+            check["tiles"] = diff.numel() // BLOCK
+            # timed while the other ranks share the card
+            check["ms"] = time_ms(torch, lambda: sign_topk_blocks(
+                diff.view(-1, BLOCK), None, 1.0, k_b), 5)
+            sign_topk_blocks.launches = before
+    sign_topk_blocks.launches = 0
+    out = train.run(argv, on_sync=at_sync)
+    launches = sign_topk_blocks.launches
+    st, step = out["state"], out["train_step"]
+    return {"losses": out["losses"], "bits": out["bits"],
+            "triggers": out["triggers"], "s_per_step": out["s_per_step"],
+            "exchange_s": out["exchange_s"], "rows": step.rows,
+            "mesh": out["mesh"], "describe": step.comm.describe(),
+            "checksums": {k: row_checksums(torch, st[k])
+                          for k in ("params", "x_hat")},
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": launches, "check": check}
+
+
+def _shard_quad_rank(rank, fsdp_argv, ckpt_argv):
+    """Phase 3n runs 3 and 5, one rank of four: the reduced main path over
+    (node 2, fsdp 2) through the train entry, then the checkpointed run through
+    the train entry at --devices 4 (saving at step 4)."""
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.sign_topk import sign_topk_blocks
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg, _ = train.configs(fsdp_argv)
+    mesh = sharding.train_mesh(make_production_mesh(), cfg)
+    sign_topk_blocks.launches = 0
+    r = train.run(fsdp_argv, mesh=mesh)
+    fsdp = {k: r[k] for k in ("losses", "bits", "triggers")}
+    fsdp.update(rows=r["train_step"].rows, coords=sharding.coordinates(mesh),
+                launches=sign_topk_blocks.launches, **_host_rows(r["state"]))
+    del r
+    sign_topk_blocks.launches = 0
+    saved = train.run(ckpt_argv)
+    return {"fsdp": fsdp, "ckpt_losses": saved["losses"],
+            "ckpt_launches": sign_topk_blocks.launches,
+            "ckpt_saves": saved["saves"]}
+
+
+def _shard_pair_rank(rank, fault_argv, serve_tokens, decode_steps):
+    """Phase 3n runs 4 and 6, one rank of two: the reduced faulty,
+    time-varying trainer over (node 2) through the train entry (dense mixing
+    through the row gather), then the reduced serve over (data 2, model
+    1) in float32 compute."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import prng
+    from repro_torch.dist import serve, sharding
+    from repro_torch.kernels.sign_topk import sign_topk_blocks
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.transformer import (init_cache, init_params,
+                                                param_shapes)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, _ = train.configs(fault_argv)
+    prod = make_production_mesh()
+    mesh = sharding.train_mesh(prod, cfg)
+    syncs = []
+    sign_topk_blocks.launches = 0
+    r = train.run(fault_argv, mesh=mesh,
+                  on_sync=lambda d, info: syncs.append(
+                      {"trig": info["trig"].cpu(), "W": info["W"].cpu()}))
+    dense = {k: r[k] for k in ("losses", "bits", "triggers")}
+    dense.update(rows=r["train_step"].rows, syncs=syncs,
+                 exchange_s=r["train_step"].exchange_s,
+                 launches=sign_topk_blocks.launches, **_host_rows(r["state"]))
+    del r
+    smesh = sharding.serve_mesh(prod)
+    scfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                               compute_dtype="float32")
+    params = init_params(scfg, prng.PRNGKey(0).to(dev))
+    prefill, _ = serve.build_prefill(scfg, smesh)
+    decode, shardings = serve.build_decode(scfg, smesh)
+    toks = torch.as_tensor(serve_tokens)
+    B = toks.shape[0]
+    glob = init_cache(scfg, B, decode_steps, device=dev)
+    _, cs, _, _, _ = shardings(param_shapes(scfg), glob, toks[:, :1], None)
+    cache = serve.local_shard(glob, cs, smesh)
+    logits = [prefill(params, toks).cpu()]
+    for t in range(decode_steps):
+        lg, cache = decode(params, cache, toks[:, t:t + 1], None, t)
+        logits.append(lg.cpu())
+    return {"dense": dense, "serve_logits": logits,
+            "serve_cache": {k: {kk: vv.cpu() for kk, vv in v.items()}
+                            for k, v in cache.items()},
+            "serve_coords": sharding.coordinates(smesh)}
+
+
+def phase_shard(torch, dev, train, counts, zero_counts, read_counts,
+                main_rec):
+    """Phase 3n: the sharded engine on the one card (see the module doc);
+    returns the numbers for the report."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import prng
+    from repro_torch.dist import comm, serve, sharding
+    from repro_torch.kernels.sign_topk import sign_topk_blocks
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.transformer import init_cache, init_params
+    card = card_line()
+    torch.cuda.empty_cache()
+    rec = {}
+
+    # ---- run 1: qwen1.5-0.5b at full width and depth, 4 ranks x 1 node
+    t0 = time.perf_counter()
+    ranks = comm.spawn(_shard_full_rank, 4, (SHARD_ARGS, main_rec["k_b"]),
+                       device_type="cuda", timeout_s=SHARD_TIMEOUT_S,
+                       deadline_s=SHARD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    log(f"sharded trainer: [train] mesh {r0['mesh']}; {r0['describe']} "
+        f"({card})")
+    for key in ("losses", "bits", "triggers"):
+        if any(r[key] != main_rec[key] for r in ranks):
+            raise AssertionError(f"sharded trainer: per-step {key} "
+                                 f"{[r[key] for r in ranks]} != phase "
+                                 f"3a's {main_rec[key]}")
+    for r in ranks:
+        lo, hi = r["rows"]
+        for key in ("params", "x_hat"):
+            if r["checksums"][key] != main_rec["checksums"][key][lo:hi]:
+                raise AssertionError(f"sharded trainer: rows {lo}:{hi} of "
+                                     f"{key} differ from phase 3a's")
+        if r["launches"] != 2 or r["check"].get("tiles", 0) * 1024 != \
+                (hi - lo) * main_rec["d_pad"]:
+            raise AssertionError(f"sharded trainer rank rows {lo}:{hi}: "
+                                 f"{r['launches']} launches, check "
+                                 f"{r['check']}")
+        rest = r["s_per_step"][1:]
+        log(f"sharded trainer rank rows {lo}:{hi}: s/step "
+            f"{[round(v, 4) for v in r['s_per_step']]}, median of steps "
+            f"2..6 {median(rest):.4f} s; exchange per sync "
+            f"{[round(v, 3) for v in r['exchange_s']]} s; peak "
+            f"{r['peak_gb']:.2f} GB; SignTopK == plain on its "
+            f"{r['check']['tiles']} tiles at t=5, max abs err "
+            f"{r['check']['err']:.3e} ({r['check']['s']:.1f} s), kernel "
+            f"{r['check']['ms']:.4f} ms there beside the other ranks "
+            f"({card})")
+    log(f"sharded trainer: losses, bits and triggers per step == phase 3a's "
+        f"{main_rec['losses']}; row checksums of params and x_hat == phase "
+        f"3a's; {wall:.1f} s for the 4 ranks' run ({card})")
+    counts["sharded_trainer"] = {
+        "sign_topk_blocks": sum(r["launches"] for r in ranks),
+        "qsgd_blocks": 0}
+    rec["trainer"] = {
+        "mesh": r0["mesh"], "describe": r0["describe"],
+        "s_per_step_median": [median(r["s_per_step"][1:]) for r in ranks],
+        "exchange_s": [r["exchange_s"] for r in ranks],
+        "peak_gb": [r["peak_gb"] for r in ranks],
+        "max_abs_err": max(r["check"]["err"] for r in ranks),
+        "kernel_ms": [r["check"]["ms"] for r in ranks],
+        "tiles_per_rank": r0["check"]["tiles"], "wall_s": wall}
+    del ranks
+
+    # ---- run 2: NCCL with one rank, reduced: == the unsharded card run
+    t0 = time.perf_counter()
+    red = MAIN_ARGS + ["--reduced"]
+    cfg, _ = train.configs(red)
+    one = train.run(red)
+    with comm.single_rank_group("nccl", dev, timeout_s=SHARD_TIMEOUT_S):
+        zero_counts()
+        mesh = sharding.train_mesh(make_production_mesh(), cfg)
+        nccl = train.run(red, mesh=mesh)
+        counts["sharded_nccl"] = read_counts()
+        backend = nccl["train_step"].comm.backend
+    for key in ("losses", "bits", "triggers"):
+        if nccl[key] != one[key]:
+            raise AssertionError(f"NCCL one rank: {key} {nccl[key]} != "
+                                 f"{one[key]}")
+    for key in ("params", "x_hat"):
+        if not torch.equal(nccl["state"][key], one["state"][key]):
+            raise AssertionError(f"NCCL one rank: {key} differs")
+    log(f"NCCL group of one rank ({backend}, mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}): reduced main path "
+        f"== the unsharded card run bit for bit (losses {nccl['losses']}); "
+        f"launches {counts['sharded_nccl']} ({time.perf_counter() - t0:.1f} "
+        f"s; {card})")
+    del one, nccl
+
+    # ---- runs 3 and 5: fsdp over gloo; the checkpoint saved at 4 ranks
+    t0 = time.perf_counter()
+    fsdp_argv = with_arg(red, "--nodes", "2")
+    tmp = tempfile.mkdtemp(prefix="shard_ckpt_")
+    ck = CKPT_ARGS + ["--reduced", "--ckpt-dir", tmp]
+    quad = comm.spawn(_shard_quad_rank, 4,
+                      (fsdp_argv, with_arg(ck, "--steps", "4") +
+                       ["--ckpt-every", "4", "--devices", "4"]),
+                      device_type="cuda", timeout_s=SHARD_TIMEOUT_S,
+                      deadline_s=SHARD_TIMEOUT_S)
+    fone = train.run(fsdp_argv)
+    parts = [q["fsdp"] for q in quad if q["fsdp"]["coords"]["fsdp"] == 0]
+    got = {k: torch.cat([p[k] for p in sorted(parts, key=lambda p:
+                                               p["rows"])])
+           for k in ("params", "x_hat")}
+    f0 = quad[0]["fsdp"]
+    if f0["bits"] != fone["bits"] or f0["triggers"] != fone["triggers"]:
+        raise AssertionError(f"fsdp: bits {f0['bits']} / triggers "
+                             f"{f0['triggers']} != {fone['bits']} / "
+                             f"{fone['triggers']}")
+    np.testing.assert_allclose(f0["losses"], fone["losses"], rtol=1e-4,
+                               err_msg="fsdp: losses")
+    fl = flips_only(got, _host_rows(fone["state"]))
+    log(f"fsdp over gloo (node 2 x fsdp 2, 4 ranks): bits and triggers == "
+        f"the one-process card run; losses {f0['losses']} (one process "
+        f"{fone['losses']}); x_hat beyond 5e-4 on {fl['xhat_far']} entries "
+        f"in {fl['flip_tiles']} of {fl['tiles']} tiles; params largest gap "
+        f"{fl['params_gap']:.3e}, {fl['params_gap_rest']:.3e} outside the "
+        f"flipped columns ({card})")
+    counts["sharded_fsdp"] = {"sign_topk_blocks": sum(
+        q["fsdp"]["launches"] for q in quad), "qsgd_blocks": 0}
+    resumed = train.run(ck + ["--resume"])
+    unbroken = train.run(CKPT_ARGS + ["--reduced"])
+    a, b = resumed["state"], unbroken["state"]
+    for key in ("params", "x_hat", "opt", "bits", "bits_c", "triggers"):
+        if not torch.equal(a[key], b[key]):
+            raise AssertionError(f"checkpoint: resumed {key} != unbroken")
+    if (a["t"], a["sync_rounds"]) != (b["t"], b["sync_rounds"]) or \
+            resumed["start"] != 4:
+        raise AssertionError("checkpoint: step counters differ")
+    if quad[0]["ckpt_losses"] != unbroken["losses"][:4]:
+        raise AssertionError("checkpoint: the 4-rank run's losses differ")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"checkpoint: saved at --devices 4 (step 4, {quad[0]['ckpt_saves']}"
+        f"), restored in one process and run to step 6 == the unbroken run "
+        f"bit for bit (params, x_hat, momentum, bits, triggers); "
+        f"{time.perf_counter() - t0:.1f} s for runs 3 and 5 ({card})")
+    counts["sharded_ckpt"] = {"sign_topk_blocks": sum(
+        q["ckpt_launches"] for q in quad), "qsgd_blocks": 0}
+    del quad, fone, resumed, unbroken, a, b
+
+    # ---- runs 4 and 6: dense mixing over gloo; the data-sharded serve
+    t0 = time.perf_counter()
+    fault_argv = FAULT_ARGS + ["--reduced"]
+    rng = np.random.default_rng(3)
+    scfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                               compute_dtype="float32")
+    toks = rng.integers(0, scfg.vocab_size, (4, 32)).astype(np.int64)
+    steps = 8
+    pair = comm.spawn(_shard_pair_rank, 2, (fault_argv, toks, steps),
+                      device_type="cuda", timeout_s=SHARD_TIMEOUT_S,
+                      deadline_s=SHARD_TIMEOUT_S)
+    done = train.run(fault_argv)
+    d0 = pair[0]["dense"]
+    for key in ("losses", "bits", "triggers"):
+        if any(p["dense"][key] != done[key] for p in pair):
+            raise AssertionError(f"dense mixing: {key} != one process")
+    got = {k: torch.cat([p["dense"][k] for p in pair]) for k in
+           ("params", "x_hat")}
+    for key, want in _host_rows(done["state"]).items():
+        if not torch.equal(got[key], want):
+            raise AssertionError(f"dense mixing: {key} differs from one "
+                                 f"process")
+    log(f"dense mixing over gloo (node 2, 2 rows per rank, "
+        f"{done['train_step'].plan.name}, faults): losses, bits, triggers "
+        f"and every row bit for bit == the one-process card run (losses "
+        f"{d0['losses']}); gather per sync {d0['exchange_s']} s ({card})")
+    counts["sharded_dense"] = {"sign_topk_blocks": sum(
+        p["dense"]["launches"] for p in pair), "qsgd_blocks": 0}
+    params = init_params(scfg, prng.PRNGKey(0).to(dev))
+    prefill, _ = serve.build_prefill(scfg, dev)
+    decode, _ = serve.build_decode(scfg, dev)
+    gt = torch.as_tensor(toks)
+    want = [prefill(params, gt).cpu()]
+    cache = init_cache(scfg, gt.shape[0], steps, device=dev)
+    for t in range(steps):
+        lg, cache = decode(params, cache, gt[:, t:t + 1], None, t)
+        want.append(lg.cpu())
+    sizes = {"data": 2, "model": 1}
+    cspecs = sharding.cache_specs(cache, sizes)
+    gap = 0.0
+    for p in pair:
+        c = p["serve_coords"]
+        rows = slice(2 * c["data"], 2 * c["data"] + 2)
+        for g, w in zip(p["serve_logits"], want, strict=True):
+            err = float((g - w[rows]).abs().max())
+            gap = max(gap, err / float(w.abs().max()))
+        for k, sub in cache.items():
+            for kk, w in sub.items():
+                ix = sharding.local_index(cspecs[k][kk], tuple(w.shape),
+                                          sizes, c)
+                g, w = p["serve_cache"][k][kk], w[ix].cpu()
+                if kk == "pos":
+                    if not torch.equal(g, w):
+                        raise AssertionError("serve: pos slots differ")
+                elif float((g - w).abs().max()) > SERVE_SHARD_RTOL * float(
+                        w.abs().max()):
+                    raise AssertionError(f"serve: cache {k}/{kk} differs")
+    if gap > SERVE_SHARD_RTOL:
+        raise AssertionError(f"serve: logits differ by {gap:.3e} of the "
+                             f"largest")
+    log(f"serve over (data 2, model 1), reduced qwen1.5-0.5b float32: "
+        f"prefill and {steps} decode steps of each rank's 2 rows == the "
+        f"one-process logits (largest gap {gap:.3e} of the largest logit) "
+        f"and cache; {time.perf_counter() - t0:.1f} s for runs 4 and 6 "
+        f"({card})")
+    rec["serve_gap"] = gap
+    return rec
 
 
 def main() -> int:
@@ -1883,6 +2269,13 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     state, step = result["state"], result["train_step"]
     losses = result["losses"]
+    # what phase 3n's four ranks must reproduce: per-step channels and a
+    # checksum of every row, before the profiled steps below move the state
+    main_rec = {"losses": losses, "bits": result["bits"],
+                "triggers": result["triggers"], "k_b": step.k_b,
+                "d_pad": step.d_pad,
+                "checksums": {k: row_checksums(torch, state[k])
+                              for k in ("params", "x_hat")}}
     log(f"main path: losses {losses}")
     if len(losses) != 6 or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"main path: losses {losses}")
@@ -1985,14 +2378,16 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     alloc0 = alloc_counts(torch)
-    result, syncs = run_logged(train, FAULT_ARGS)
+    with ArchRegistry(lambda c: dataclasses.replace(c, n_layers=CUT_DEPTH)):
+        result, syncs = run_logged(train, FAULT_ARGS)
     alloc1 = alloc_counts(torch)
     counts["faulty_trainer"] = read_counts()
     f_launches = counts["faulty_trainer"]["sign_topk_blocks"]
     f_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     state, step = result["state"], result["train_step"]
     f_losses, f_step_s = result["losses"], result["s_per_step"]
-    log(f"faulty trainer: plan {step.plan.name}, losses {f_losses}")
+    log(f"faulty trainer at depth {CUT_DEPTH} of {cfg.n_layers}: plan "
+        f"{step.plan.name}, losses {f_losses}")
     if len(f_losses) != 6 or not all(math.isfinite(v) for v in f_losses):
         raise AssertionError(f"faulty trainer: losses {f_losses}")
     if not (state["sync_rounds"] == len(syncs) == f_launches == 2):
@@ -2030,7 +2425,8 @@ def main() -> int:
             abs(f_bits - f_want) > 1e-6 * f_want:
         raise AssertionError(f"faulty trainer: bits {f_bits} != reckoned "
                              f"{f_want} from {f_trig} triggers")
-    if state["params"][:, D:].any() or state["x_hat"][:, D:].any():
+    f_D = step.d_model_total
+    if state["params"][:, f_D:].any() or state["x_hat"][:, f_D:].any():
         raise AssertionError("faulty trainer: the padded tail is not zero")
     f_steady = sum(f_step_s[1:]) / len(f_step_s[1:])
     log(f"faulty trainer: {f_launches} kernel launches, {f_trig} triggers, "
@@ -2401,6 +2797,12 @@ def main() -> int:
                             read_counts)
     max_err = max(max_err, serve_rec["dsv3_trainer"]["max_abs_err"])
     log(f"phase 3m: {time.perf_counter() - t0:.1f} s")
+    # ---------------------------------------------------- 3n. sharding
+    t0 = time.perf_counter()
+    shard_rec = phase_shard(torch, dev, train, counts, zero_counts,
+                            read_counts, main_rec)
+    max_err = max(max_err, shard_rec["trainer"]["max_abs_err"])
+    log(f"phase 3n: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------- 4. report
     def by_path(name):
@@ -2422,7 +2824,11 @@ def main() -> int:
         "moe_trainer_bound_ms": moe_rec["moe_bound_ms"],
         "moe_trainer_shape_gaussian_ms": moe_rec["moe_randn_ms"],
         **{f"{name}_trainer_{k}": r[k] for name, r in ssm_rec.items()
-           for k in ("shape", "ms", "bound_ms")}}, {
+           for k in ("shape", "ms", "bound_ms")},
+        "sharded_rank_shape": [shard_rec["trainer"]["tiles_per_rank"], BLOCK],
+        "sharded_rank_bound_ms": sign_topk_bound_ms(
+            shard_rec["trainer"]["tiles_per_rank"]),
+        "sharded_rank_contended_ms": shard_rec["trainer"]["kernel_ms"]}, {
         "name": "qsgd_blocks", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qsgd.cu",
         "replaces": "src/repro/kernels/qsgd.py:41",

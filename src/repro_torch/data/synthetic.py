@@ -1,7 +1,8 @@
 """Synthetic data (counterpart of ``repro/data/synthetic.py``).
 
 1. ``TokenPipeline``: a deterministic, shardable LM token stream (numpy
-   only, bit for bit the reference's batches). Each node draws from its own
+   only, bit for bit the reference's batches); a rank draws only its own
+   nodes' batches (``rows_batch``). Each node draws from its own
    bigram "grammar" (next = (a*tok + b) mod v, with 10% noise), seeded per
    (seed, node, step), so the data are heterogeneous across nodes.
 2. ``convex_dataset`` and ``logistic_loss_and_grad``: the paper's Section
@@ -50,7 +51,14 @@ class TokenPipeline:
 
     def global_batch(self, step: int) -> Dict[str, np.ndarray]:
         """(n_nodes, batch_per_node, seq) stacked batch for the train step."""
-        per = [self.batch(i, step) for i in range(self.n_nodes)]
+        return self.rows_batch(step, 0, self.n_nodes)
+
+    def rows_batch(self, step: int, lo: int, hi: int
+                   ) -> Dict[str, np.ndarray]:
+        """Rows ``[lo, hi)`` of :meth:`global_batch`: a rank draws only its
+        own nodes' batches, each as the one-process run draws it (the
+        engine takes the rank's fsdp slice of each)."""
+        per = [self.batch(i, step) for i in range(lo, hi)]
         return {k: np.stack([b[k] for b in per]) for k in per[0]}
 
 

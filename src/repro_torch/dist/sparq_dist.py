@@ -29,11 +29,28 @@ in-place update and put back), repairs ``W_r`` over the surviving links,
 mutes offline nodes and charges live links only. Every node's forward and
 backward still run: the reported loss is the mean over all n nodes.
 
-The whole node ensemble lives on the one device. Memory is the design
-constraint: at Qwen1.5-0.5B width each ``(4, D_pad)`` float32 buffer is
-9.9 GB, so at most five are live (params, x_hat, grads, the kernel's q, and
-the optimizer's momentum when there is one) and everything else is done in
-place, in column chunks or one row at a time:
+Without a mesh the whole node ensemble lives on the one device. With a
+``(node, fsdp, model)`` mesh (:mod:`repro_torch.dist.sharding`) the
+ensemble is ``n = lcm(cfg.n_nodes, node)``, as the reference stretches it,
+and each rank holds rows ``[r m, (r + 1) m)`` of every node-stacked buffer
+(``m = n / node``, ``r`` its node coordinate), replicated over ``fsdp``
+and ``model`` as the reference's ``P("node")`` rows are. Each rank runs the
+forward and backward of its rows on its fsdp slice of each per-node batch
+(the loss and gradients summed over the fsdp group), the local step, the
+trigger norms, the compression of its rows and the x_hat update; the
+trigger vector, the fault masks and the repaired ``W_r``, the bits, the
+trigger count and the reported loss come from gathered ``(n,)`` vectors
+and are the same on every rank. Mixing fetches, per column chunk, the
+rolled rows of a shift plan from the ranks that hold them
+(:class:`repro_torch.dist.comm.NodeComm`), and keeps the one-process
+expression order, so that with ``fsdp = 1`` every row is bit for bit what
+one process gives; a dense plan gathers the chunk's n rows and takes its
+own rows of the full product.
+
+Memory is the design constraint: at Qwen1.5-0.5B width each ``(4, D_pad)``
+float32 buffer is 9.9 GB, so at most five are live (params, x_hat, grads,
+the kernel's q, and the optimizer's momentum when there is one) and
+everything else is done in place, in column chunks or one row at a time:
 
 * gradients are written straight into the grads buffer: each node's leaves
   are detached views of its params row whose ``.grad`` is the matching view
@@ -72,6 +89,8 @@ from repro_torch.core.topology import (GossipPlan, Topology, circulant_row,
                                        make_plan)
 from repro_torch.core.triggers import ThresholdSchedule, zero
 from repro_torch.device import resolve_device
+from repro_torch.dist.comm import NodeComm
+from repro_torch.dist.sharding import fsdp_split
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.sign_topk import BLOCK
 from repro_torch.models.config import ModelConfig
@@ -263,9 +282,11 @@ def _column_chunks(width: int) -> Iterator[slice]:
 def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
                 device: Union[str, torch.device, None] = "cuda",
                 on_sync: Optional[Callable[[torch.Tensor, Dict[str, Any]],
-                                           None]] = None
+                                           None]] = None,
+                mesh: Any = None
                 ) -> Tuple[Callable[..., State], Callable, Dict[str, Any]]:
-    """Build the flat-buffer engine for one model on one device.
+    """Build the flat-buffer engine for one model on one device, or on this
+    rank's device of a ``(node, fsdp, model)`` ``DeviceMesh``.
 
     Returns ``(init_fn, train_step, pshape)``:
 
@@ -279,14 +300,25 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
       seq)`` integer arrays or tensors ``tokens`` and ``labels``;
     * ``pshape``: the single-node parameter tree as nested dicts of shapes.
 
-    The ensemble size is ``n = cfg.n_nodes``. ``on_sync``, when given, is
-    called at every sync before compression with the ``(n, D_pad)`` float32
-    ``diff`` (it must not modify it) and a dict of the sync's ``t``,
-    ``sync_round``, mixing matrix ``W`` and degrees ``deg`` (repaired under
-    faults), ``live`` (None without faults) and the gated triggers ``trig``.
+    The ensemble size is ``n = lcm(cfg.n_nodes, node)`` (``cfg.n_nodes``
+    without a mesh). With a mesh, the state holds this rank's ``m`` rows,
+    ``train_step.rows`` is their range ``(lo, lo + m)``, and ``batch`` is
+    either the global ``(n, per_node, seq)`` batch or the rank's rows of it
+    ``(m, per_node, seq)``; the engine takes its fsdp slice itself (the
+    per-node batch splits over ``fsdp`` when it divides). ``on_sync``, when
+    given, is called at every sync before compression with the rank's ``(m,
+    D_pad)`` float32 ``diff`` (it must not modify it) and a dict of the
+    sync's ``t``, ``sync_round``, mixing matrix ``W`` and degrees ``deg``
+    (repaired under faults), ``live`` (None without faults), the gated
+    triggers ``trig`` of all n nodes and the rank's ``rows``.
+    ``train_step.exchange_s`` lists each sync's seconds in the row
+    exchanges.
     """
     dev = resolve_device(device)
-    n = int(cfg.n_nodes)
+    comm = NodeComm(mesh, dev)
+    n = math.lcm(int(cfg.n_nodes), comm.node_ax)
+    m = n // comm.node_ax
+    lo = comm.node_index * m
     plan = dcfg.resolved_plan(n)
     R = plan.R
     comp = dcfg.resolved_compressor()
@@ -330,10 +362,10 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
 
     def zero_state() -> State:
         """A t = 0 state with every buffer zero: what a restore fills."""
-        flat = torch.zeros((n, D_pad), dtype=torch.float32, device=dev)
+        flat = torch.zeros((m, D_pad), dtype=torch.float32, device=dev)
         total, comp_ = bits_mod.acc_init(dev)
         return {"params": flat,
-                "x_hat": torch.zeros((n, D_pad), dtype=xhat_dt, device=dev),
+                "x_hat": torch.zeros((m, D_pad), dtype=xhat_dt, device=dev),
                 "opt": opt.init(flat), "t": 0, "bits": total,
                 "bits_c": comp_, "sync_rounds": 0,
                 "triggers": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -349,46 +381,64 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
         else:
             for path, off, size, _ in slices:
                 flat[0, off:off + size].copy_(_get(params, path).reshape(-1))
-        flat[1:].copy_(flat[0].expand(n - 1, D_pad))
+        flat[1:].copy_(flat[0].expand(m - 1, D_pad))
         return state
 
     def node_losses_grads(params: torch.Tensor, batch: Mapping[str, Any],
                           grads: torch.Tensor) -> torch.Tensor:
-        """Per-node loss; per-node gradients accumulate into ``grads``."""
-        losses = torch.zeros((n,), dtype=torch.float32, device=dev)
+        """Per-node loss of the rank's rows; their gradients accumulate into
+        ``grads``, summed over the fsdp group."""
+        losses = torch.zeros((m,), dtype=torch.float32, device=dev)
         per = batch["tokens"].shape[1]
+        parts = fsdp_split(per, comm.fsdp)
+        f_lo = comm.fsdp_index * (per // parts) if parts > 1 else 0
+        per //= parts
         if per % mbs:
             raise ValueError(f"batch_per_node {per} is not a multiple of "
                              f"microbatches {mbs}")
-        m = per // mbs
-        for i in range(n):
+        mb = per // mbs
+        for i in range(m):
             tree = grad_views(params[i], grads[i], slices, param_dt)
             for j in range(mbs):
-                sub = {k: v[i, j * m:(j + 1) * m] for k, v in batch.items()}
+                sub = {k: v[i, f_lo + j * mb:f_lo + (j + 1) * mb]
+                       for k, v in batch.items()}
                 loss = lm_loss(cfg, tree, sub)[0]
                 loss.backward()
                 losses[i] += loss.detach()
         if mbs > 1:
             losses.div_(mbs)
             grads.div_(mbs)
+        if parts > 1:
+            comm.sum_fsdp(losses)
+            comm.sum_fsdp(grads)
+            losses.div_(parts)
+            grads.div_(parts)
         return losses
 
-    def mix_term(x: torch.Tensor, W_r: torch.Tensor) -> torch.Tensor:
-        """Consensus term (W_r x - x) of an (n, chunk) float32 block."""
+    def mix_term(xe: torch.Tensor, W_r: torch.Tensor) -> torch.Tensor:
+        """Consensus term (W_r x - x) of the rank's rows of an (n, chunk)
+        block, from its (m, chunk) rows of the new x_hat."""
+        x = xe.to(torch.float32)
         if shift_terms is not None:
-            # (W x)_i = sum_s c_s x_{(i+s) mod n}
+            # (W x)_i = sum_s c_s x_{(i+s) mod n}: the rolled rows fetched
+            # (rolled, with one rank), added in the one-process order
+            rolled = comm.fetch_shifts(xe, [s for s, _ in shift_terms])
             acc = (float(shift_row[0]) - 1.0) * x
-            for s, c_s in shift_terms:
-                acc = acc + c_s * torch.roll(x, -s, dims=0)
+            for (_, c_s), x_s in zip(shift_terms, rolled, strict=True):
+                acc = acc + c_s * x_s.to(torch.float32)
             return acc
-        return gossip_mix(W_r, x)
+        if comm.node_ax == 1:
+            return gossip_mix(W_r, x)
+        # the product over all n rows, of which this rank keeps its own: a
+        # GEMM of m rows may sum in another order than the n-row one
+        return gossip_mix(W_r, comm.gather_rows(x))[lo:lo + m]
 
     def node_rows(opt_state: Any) -> List[torch.Tensor]:
         """The optimizer state's node-stacked tensors (a shared step count
         is not one)."""
         if isinstance(opt_state, torch.Tensor):
             return [opt_state] if opt_state.dim() and \
-                opt_state.shape[0] == n else []
+                opt_state.shape[0] == m else []
         if isinstance(opt_state, tuple):
             return [r for v in opt_state for r in node_rows(v)]
         return []
@@ -401,7 +451,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
         frozen = []
         if flt is not None:
             act = flt.step_mask(state["t"], n)
-            frozen = [i for i in range(n) if not act[i]]
+            frozen = [i for i in range(m) if not act[lo + i]]
         kept = [[buf[i].clone() for buf in [params] + node_rows(state["opt"])]
                 for i in frozen]
         state["opt"] = opt.update(grads, state["opt"], params, float(eta))
@@ -413,25 +463,26 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     def compress(diff: torch.Tensor, t: int) -> torch.Tensor:
         """q for every row of ``diff`` (untriggered rows are gated later)."""
         if dcfg.use_kernel:
-            # one launch over the whole buffer
-            return kernel_ops.sign_topk_ensemble(diff, k_b)   # (n, D_pad)
+            # one launch over the rank's whole buffer
+            return kernel_ops.sign_topk_ensemble(diff, k_b)   # (m, D_pad)
         # the registry operator over each row's true D columns, one row at
-        # a time (its temporaries are row-sized), written over diff
+        # a time (its temporaries are row-sized), written over diff, with
+        # the row's global key
         keys = prng.split(prng.fold_in(base_key, t), n)
-        for i in range(n):
-            diff[i, :D] = comp(diff[i, :D], keys[i])
+        for i in range(m):
+            diff[i, :D] = comp(diff[i, :D], keys[lo + i])
         return diff
 
     def sync(state: State, diff: torch.Tensor, eta: torch.Tensor) -> None:
         params, x_hat = state["params"], state["x_hat"]
         t, r = state["t"], state["sync_rounds"] % R
         c_t = dcfg.threshold(t)
-        sq = torch.zeros((n,), dtype=torch.float32, device=dev)
+        sq = torch.zeros((m,), dtype=torch.float32, device=dev)
         for c in _column_chunks(D_pad):
             d = torch.sub(params[:, c], x_hat[:, c].to(torch.float32),
                           out=diff[:, c])
             sq += (d * d).sum(dim=1)
-        trig = trigger_mask(sq, c_t, eta)
+        trig = trigger_mask(comm.gather_vec(sq), c_t, eta)     # (n,)
         live = None
         if flt is None:
             W_r, deg_r = ws_dev[r], degs_dev[r]
@@ -441,17 +492,19 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
             W_r, deg_r, live = flt.apply(ws[r], t, state["sync_rounds"])
             W_r, deg_r = W_r.to(dev), deg_r.to(dev)
             trig = trig & live.to(dev)
-        trigf = trig.to(torch.float32)[:, None]
+        trigf = trig[lo:lo + m].to(torch.float32)[:, None]
         if on_sync is not None:
             on_sync(diff, {"t": t, "sync_round": state["sync_rounds"],
                            "W": W_r, "deg": deg_r, "live": live,
-                           "trig": trig})
+                           "trig": trig, "rows": (lo, lo + m)})
         q = compress(diff, t)
+        comm.seconds = 0.0
         for c in _column_chunks(D_pad):
             xe_new = (x_hat[:, c].to(torch.float32)
                       + q[:, c] * trigf).to(xhat_dt)          # lines 11, 13
             x_hat[:, c] = xe_new
-            params[:, c] += gamma * mix_term(xe_new.to(torch.float32), W_r)
+            params[:, c] += gamma * mix_term(xe_new, W_r)
+        exchange_s.append(comm.seconds)
         del q
         state["bits"], state["bits_c"] = bits_mod.acc_add(
             state["bits"], state["bits_c"],
@@ -461,12 +514,14 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
 
     def train_step(state: State, batch: Mapping[str, Any]
                    ) -> Tuple[State, Dict[str, Any]]:
-        batch = {k: torch.as_tensor(v).to(device=dev, dtype=torch.int64)
-                 for k, v in batch.items()}
         lead = {v.shape[0] for v in batch.values()}
-        if lead != {n}:
+        if lead not in ({n}, {m}):
             raise ValueError(f"batch leading dims {sorted(lead)} != "
-                             f"ensemble size {n}")
+                             f"ensemble size {n} (or this rank's {m} rows)")
+        rows = slice(lo, lo + m) if lead == {n} else slice(None)
+        batch = {k: torch.as_tensor(v)[rows].to(device=dev,
+                                                 dtype=torch.int64)
+                 for k, v in batch.items()}
         params = state["params"]
         grads = torch.zeros_like(params)
         losses = node_losses_grads(params, batch, grads)
@@ -478,17 +533,21 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
                 sync(state, grads, eta)
         del grads
         state["t"] += 1
-        metrics = {"loss": losses.mean(), "eta": eta,
+        metrics = {"loss": comm.gather_vec(losses).mean(), "eta": eta,
                    "bits": state["bits"],
                    "sync_rounds": state["sync_rounds"],
                    "triggers": state["triggers"]}
         return state, metrics
 
+    exchange_s: List[float] = []
     for fn in (init_fn, train_step):
         fn.use_kernel = bool(dcfg.use_kernel)
         fn.lowering = "cuda" if dev.type == "cuda" else "torch"
         fn.device = dev
         fn.n_nodes = n
+        fn.rows = (lo, lo + m)
+        fn.comm = comm
+        fn.exchange_s = exchange_s
         fn.plan = plan
         fn.compressor = comp_eff
         fn.k_b = k_b

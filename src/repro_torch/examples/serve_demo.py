@@ -57,7 +57,7 @@ def run(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     cache = init_cache(cfg, args.batch, cache_len, device=dev)
     prompt = prng.randint(key, (args.batch, args.prompt_len), 0,
                           cfg.vocab_size).to(dev)
-    step = build_decode(cfg, dev)
+    step, _ = build_decode(cfg, dev)
 
     def sync():
         if dev.type == "cuda":

@@ -1,11 +1,25 @@
 """End-to-end decentralized training driver of the port (counterpart of
 ``repro/launch/train.py``): the same flags and defaults, plus ``--device``.
 
-The whole ``--nodes`` ensemble lives on one device, ``cuda`` unless
-``--device cpu`` is given:
+Without ``--devices`` the whole ``--nodes`` ensemble lives on one device,
+``cuda`` unless ``--device cpu`` is given:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
       --nodes 4 --use-kernel --steps 6 --H 3
+
+``--devices N`` runs N ranks over the reference's ``(node, fsdp, model)``
+mesh, factored as the reference factors it (``n_nodes = min(n_nodes,
+N)``, the model axis what the nodes leave over). The ranks come from
+``torchrun``'s environment when it is set; otherwise the CLI starts N
+processes itself. Rank ``r`` runs on ``cuda:{local_rank % cards}`` or on
+the CPU; the backend is NCCL when every rank has a card of its own, and
+gloo (CUDA blocks staged through pinned host buffers) when ranks share a
+card or run on the CPU. Rank 0 logs; a failed rank fails the run:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --devices 2 \\
+      --device cpu --steps 6 --H 3
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --devices 4 --nodes 4 --use-kernel --steps 6 --H 3
 
 ``--use-kernel`` compresses with the blockwise SignTopK kernel; without it
 the run takes the generic path, a global SignTopK of ``--frac`` of each
@@ -24,14 +38,15 @@ and runs the steps left up to ``--steps``:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --nodes 4 \
       --use-kernel --steps 6 --H 3 --ckpt-dir ckpt --resume
 
-Flags whose features are not ported yet raise with the reason: ``--lint``
-and ``--devices`` (the mesh factoring waits for the sharding slice).
+``--lint`` is not ported yet and raises with the reason (the audits).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
+import os
 import resource
 import sys
 import time
@@ -47,7 +62,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--devices", type=int, default=0,
-                    help="force N host devices (not ported: mesh factoring)")
+                    help="run N ranks over the (node, fsdp, model) mesh")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke-test config")
     ap.add_argument("--nodes", type=int, default=0, help="override n_nodes")
@@ -106,15 +121,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    waits = [
-        (args.devices, "--devices: the mesh factoring waits for the "
-                       "sharding slice; the ensemble runs on one device"),
-        (args.lint, "--lint: the static audit checks XLA programs and has no "
-                    "counterpart in the port yet (ROADMAP.md, audits)"),
-    ]
-    for bad, why in waits:
-        if bad:
-            raise SystemExit(f"[train] not ported: {why}")
+    if args.lint:
+        raise SystemExit("[train] not ported: --lint: the static audit "
+                         "checks XLA programs and has no counterpart in the "
+                         "port yet (ROADMAP.md, audits)")
 
 
 def _fault_plan(args: argparse.Namespace) -> FaultPlan:
@@ -147,53 +157,187 @@ def host_peak_rss_gb() -> float:
 
 
 def run(argv: Optional[Sequence[str]] = None, on_sync=None,
-        on_checkpoint=None) -> Dict[str, Any]:
-    """Parse ``argv``, train, and return what the run produced: ``losses``
-    (one float per step run), the final ``state`` and ``metrics``, the
-    engine's ``train_step`` (its metadata attributes), ``s_per_step`` (host
-    clock around each step, synchronized on CUDA), ``start`` (the step a
-    resume began at), and the ``saves`` and ``restore`` records (path, GB,
-    seconds, host peak RSS). ``on_sync`` is passed on to ``build_sparq``;
+        on_checkpoint=None, *, mesh: Any = None) -> Dict[str, Any]:
+    """Parse ``argv``, train, and return what the run produced: ``losses``,
+    ``bits`` and ``triggers`` (one value per step run), the final ``state``
+    and ``metrics``, the engine's ``train_step`` (its metadata attributes),
+    ``s_per_step`` (host clock around each step, synchronized on CUDA),
+    ``start`` (the step a resume began at), the ``saves`` and ``restore``
+    records (path, GB, seconds, host peak RSS), and the ``mesh`` sizes
+    (None in one process). ``on_sync`` is passed on to ``build_sparq``;
     ``on_checkpoint(kind, path, step, state)`` is called after every save
-    (``"save"``) and after the restore (``"restore"``)."""
+    (``"save"``) and after the restore (``"restore"``).
+
+    With ``--devices N`` this process is one rank of N when a process group
+    is up (or ``torchrun``'s environment names one); otherwise it starts
+    the N ranks and returns rank 0's record without ``state``,
+    ``train_step`` and ``metrics``. ``mesh``, a ``(node, fsdp, model)``
+    mesh over the caller's process group, is trained on instead of the one
+    ``--devices`` factors (e.g. with an ``fsdp`` axis); every rank calls
+    ``run`` with it."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
     _refuse_unported(args)
     if args.resume and not args.ckpt_dir:
         raise SystemExit("[train] --resume needs --ckpt-dir")
-    faults = _fault_plan(args)
+    if not args.devices and mesh is None:
+        return _run(args, on_sync, on_checkpoint)
+    import torch.distributed as dist
 
-    from repro_torch.checkpoint import ckpt
+    from repro_torch.device import resolve_device
+    from repro_torch.dist import comm
+    dev_type = resolve_device(args.device).type
+    if args.devices and not dist.is_initialized() and \
+            "RANK" not in os.environ:
+        if on_sync is not None or on_checkpoint is not None:
+            raise ValueError("callbacks do not cross into the ranks this "
+                             "run starts; start the ranks yourself")
+        if dev_type == "cuda" and args.use_kernel:
+            from repro_torch import kernels
+            kernels.build()        # once, before the ranks load it
+        # no deadline on the join: a hung rank fails its group's
+        # collectives, and a rank that exits non-zero fails the run
+        out = comm.spawn(_rank_main, args.devices, (argv,),
+                         device_type=dev_type)
+        return out[0]
+    if not dist.is_initialized():           # torchrun's environment
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        ranks = int(os.environ.get("LOCAL_WORLD_SIZE", args.devices))
+        comm.init_rank(int(os.environ["RANK"]),
+                       int(os.environ["WORLD_SIZE"]),
+                       comm.backend_for(dev_type, ranks),
+                       comm.rank_device(dev_type, local))
+    if args.devices and dist.get_world_size() != args.devices:
+        raise SystemExit(f"[train] --devices {args.devices} but the process "
+                         f"group has {dist.get_world_size()} ranks")
+    with contextlib.ExitStack() as stack:
+        if dist.get_rank():                 # rank 0 logs
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        return _run(args, on_sync, on_checkpoint, mesh)
+
+
+SUMMARY_KEYS = ("losses", "bits", "triggers", "s_per_step", "start",
+                "saves", "restore", "mesh", "cfg", "exchange_s")
+
+
+def _rank_main(rank: int, argv: List[str]) -> Dict[str, Any]:
+    """One rank of a run that ``run`` started: its record, on the host."""
+    out = run(argv)
+    return {k: out[k] for k in SUMMARY_KEYS}
+
+
+def _configs(args: argparse.Namespace):
+    """The model and engine configs the flags name (one process's view)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import prng
     from repro_torch.core.schedule import decaying
     from repro_torch.core.triggers import constant
-    from repro_torch.data.synthetic import TokenPipeline
-    from repro_torch.device import resolve_device
-    from repro_torch.dist.sparq_dist import DistSparqConfig, build_sparq
+    from repro_torch.dist.sparq_dist import DistSparqConfig
 
-    dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        # float32 products stay in full float32 (no TF32), like the reference
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.nodes:
         cfg = dataclasses.replace(cfg, n_nodes=args.nodes)
-
     dcfg = DistSparqConfig(
         H=args.H, frac=args.frac, lr=decaying(args.lr, 100.0),
         threshold=constant(args.threshold), momentum=args.momentum,
         nesterov=args.nesterov, variant=args.variant,
         use_kernel=args.use_kernel, topology=args.topology, deg=args.deg,
         mixing=args.mixing, dynamic=args.dynamic, rounds=args.dynamic_rounds,
-        edge_frac=args.edge_frac, topo_seed=args.topo_seed, faults=faults)
+        edge_frac=args.edge_frac, topo_seed=args.topo_seed,
+        faults=_fault_plan(args))
+    return cfg, dcfg
+
+
+def configs(argv: Sequence[str]):
+    """``(cfg, dcfg)`` of a command line, e.g. to factor a mesh of one's
+    own for ``run(argv, mesh=...)``."""
+    return _configs(_parser().parse_args(list(argv)))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_steps(train_step, state: Dict[str, Any], pipe, start: int,
+                stop: int, on_step=None):
+    """The training loop: for ``start <= i < stop``, step ``i`` on this
+    rank's rows of the pipeline's batch ``i``, then ``on_step(i, state,
+    metrics)``. Returns the final state, the last step's metrics (None when
+    no step ran) and the per-step ``losses``, ``bits``, ``triggers`` and
+    ``s_per_step`` (host clock around each step, synchronized on CUDA)."""
+    dev = train_step.device
+    lo, hi = train_step.rows
+    losses: List[torch.Tensor] = []
+    bits: List[torch.Tensor] = []
+    trig: List[torch.Tensor] = []
+    s_per_step: List[float] = []
+    metrics: Optional[Dict[str, Any]] = None
+    for i in range(start, stop):
+        batch = pipe.rows_batch(i, lo, hi)       # this rank's nodes only
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        _sync(dev)
+        s_per_step.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].detach())
+        bits.append(metrics["bits"].clone())
+        trig.append(metrics["triggers"].clone())
+        if on_step is not None:
+            on_step(i, state, metrics)
+    return state, metrics, {
+        "losses": [float(v) for v in losses],
+        "bits": [float(v) for v in bits],
+        "triggers": [int(v) for v in trig], "s_per_step": s_per_step}
+
+
+def _run(args: argparse.Namespace, on_sync, on_checkpoint, mesh: Any = None
+         ) -> Dict[str, Any]:
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.dist.sparq_dist import build_sparq
+
+    dev = resolve_device(args.device)
+    if args.devices or mesh is not None:
+        import torch.distributed as dist
+        from repro_torch.dist.comm import rank_device
+        dev = rank_device(dev.type, int(os.environ.get("LOCAL_RANK",
+                                                       dist.get_rank())))
+    if dev.type == "cuda":
+        # float32 products stay in full float32 (no TF32), like the reference
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg, dcfg = _configs(args)
+    faults = dcfg.faults
+    if args.devices and mesh is None:
+        from repro_torch.dist import sharding
+        from repro_torch.launch.mesh import make_production_mesh
+        n_nodes, model_par = sharding.cli_factoring(args.devices,
+                                                    cfg.n_nodes)
+        cfg = dataclasses.replace(cfg, n_nodes=n_nodes)
+        mesh = sharding.train_mesh(
+            make_production_mesh(model=model_par, device_type=dev.type), cfg)
+    sizes = None
+    if mesh is not None:
+        from repro_torch.dist import sharding
+        sizes = sharding.axis_sizes(mesh)
     init_fn, train_step, pshape = build_sparq(cfg, dcfg, device=dev,
-                                              on_sync=on_sync)
+                                              on_sync=on_sync, mesh=mesh)
     plan = init_fn.plan
-    print(f"[train] ensemble n={cfg.n_nodes} on {dev} arch={cfg.arch_id} "
-          f"(~{init_fn.d_model_total / 1e6:.1f}M params/node)")
+    rows = None
+    if mesh is None:
+        print(f"[train] ensemble n={cfg.n_nodes} on {dev} "
+              f"arch={cfg.arch_id} (~{init_fn.d_model_total / 1e6:.1f}M "
+              f"params/node)")
+    else:
+        print(f"[train] mesh {sizes}  arch={cfg.arch_id} "
+              f"(~{init_fn.d_model_total / 1e6:.1f}M params/node); "
+              f"{train_step.comm.describe()}")
+        rows = ckpt.Rows.of(train_step)
     print(f"[train] gossip plan {plan.name} (R={plan.R}) "
           f"delta_eff={plan.delta_eff:.4f}")
     print(f"[train] compressor {train_step.compressor.name} "
@@ -203,10 +347,6 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None,
               f"stragglers={faults.stragglers}@{faults.straggler_frac} "
               f"dropout={[(w.node, w.start, w.end) for w in faults.dropout]} "
               f"seed={faults.seed}")
-
-    def sync_device():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     start, last, restored = 0, None, None
     if args.resume:
@@ -219,8 +359,9 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None,
         # bits/bits_c, sync_rounds, triggers) read into a zero state: no
         # x^0 is drawn for it
         t0 = time.perf_counter()
-        state = ckpt.restore(args.ckpt_dir, last, like=init_fn.zero_state())
-        sync_device()
+        state = ckpt.restore(args.ckpt_dir, last, like=init_fn.zero_state(),
+                             rows=rows)
+        _sync(dev)
         path = f"{args.ckpt_dir}/step_{last}"
         restored = {"path": path, "step": last,
                     "gb": ckpt.nbytes(state) / 1e9,
@@ -236,26 +377,17 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None,
     else:
         t0 = time.perf_counter()
         state = init_fn(key=prng.PRNGKey(0))
-        sync_device()
+        _sync(dev)
         print(f"[train] x^0 = init_params(PRNGKey(0)) drawn in "
               f"{time.perf_counter() - t0:.2f} s")
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                          batch_per_node=args.batch_per_node,
-                         n_nodes=cfg.n_nodes, seed=0)
+                         n_nodes=train_step.n_nodes, seed=0)
 
-    losses: List[torch.Tensor] = []
-    s_per_step: List[float] = []
     saves: List[Dict[str, Any]] = []
-    metrics: Optional[Dict[str, Any]] = None
     t_start = time.perf_counter()
-    for i in range(start, args.steps):
-        batch = pipe.global_batch(i)
-        sync_device()
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, batch)
-        sync_device()
-        s_per_step.append(time.perf_counter() - t0)
-        losses.append(metrics["loss"].detach())
+
+    def after_step(i, state, metrics):
         if (i + 1) % args.log_every == 0:
             print(f"[train] step {i + 1:5d} loss {float(metrics['loss']):.4f} "
                   f"eta {float(metrics['eta']):.4f} "
@@ -266,7 +398,7 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None,
         if args.ckpt_dir and args.ckpt_every and \
                 (i + 1) % args.ckpt_every == 0:
             t0 = time.perf_counter()
-            path = ckpt.save(args.ckpt_dir, i + 1, state)
+            path = ckpt.save(args.ckpt_dir, i + 1, state, rows=rows)
             rec = {"path": path, "step": i + 1,
                    "gb": ckpt.nbytes(state) / 1e9,
                    "s": time.perf_counter() - t0,
@@ -277,7 +409,10 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None,
                   f"GB")
             if on_checkpoint is not None:
                 on_checkpoint("save", path, i + 1, state)
-    loss_values = [float(v) for v in losses]
+
+    state, metrics, record = train_steps(train_step, state, pipe, start,
+                                         args.steps, after_step)
+    loss_values = record["losses"]
     if metrics is None:
         # steps <= start: --steps 0, or a resume that is already complete
         print(f"[train] DONE no steps run (start={start}, "
@@ -288,9 +423,10 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None,
               f"trigger_events={int(metrics['triggers'])}")
     if any(not math.isfinite(v) for v in loss_values):
         raise SystemExit(f"[train] non-finite loss: {loss_values}")
-    return {"losses": loss_values, "state": state, "metrics": metrics,
-            "train_step": train_step, "cfg": cfg, "s_per_step": s_per_step,
-            "start": start, "saves": saves, "restore": restored}
+    return {**record, "state": state, "metrics": metrics,
+            "train_step": train_step, "cfg": cfg, "start": start,
+            "saves": saves, "restore": restored, "mesh": sizes,
+            "exchange_s": list(train_step.exchange_s)}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

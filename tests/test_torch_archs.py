@@ -178,8 +178,7 @@ def _ulps(got, want, dtype):
     return int(np.max(np.abs(a - b), initial=0))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_init_params_equals_reference_leaf_by_leaf(arch):
+def _assert_init_equal(arch):
     jc, tc = _cfgs(arch)
     want = dict(_walk(jax.tree.map(np.asarray, jtf.init_params(
         jc, jax.random.PRNGKey(0)))))
@@ -190,6 +189,34 @@ def test_init_params_equals_reference_leaf_by_leaf(arch):
         g = got[path]
         assert tuple(g.shape) == w.shape and g.dtype == dt, path
         assert _ulps(g, w, dt) <= (1 if dt == torch.bfloat16 else ULPS), path
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_equals_reference_leaf_by_leaf(arch):
+    """In the layout the session runs in (``tests/test_torch_layout.py``:
+    the original one)."""
+    _assert_init_equal(arch)
+
+
+@pytest.fixture
+def partitionable_stream():
+    """JAX's default threefry layout in both packages, restored after."""
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    try:
+        with prng.threefry_partitionable(True):
+            yield
+    finally:
+        jax.config.update("jax_threefry_partitionable", old)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_equal_reference_in_the_partitionable_layout(
+        partitionable_stream, arch):
+    """The same, in the layout JAX draws from by default: every family's
+    x^0, whatever layout the session runs in."""
+    assert jax.config.jax_threefry_partitionable and prng.partitionable()
+    _assert_init_equal(arch)
 
 
 def _batch(cfg, seed=0, embeds=False):

@@ -1,11 +1,17 @@
 """Port parity, serving: ``repro_torch.dist.serve`` (``serve_shapes``,
 ``build_prefill``, ``build_decode``) against ``repro.dist.serve`` on a
-one-device ``("data", "model")`` mesh on the CPU, the serve-shape helpers
-of the registry, and the port's ``serve_demo`` on the CPU.
+one-device ``("data", "model")`` mesh on the CPU, their ``shardings_fn``
+against the reference's at its abstract ``(data 16, model 16)`` mesh, a
+``(data 2, model 1)`` serve over two gloo ranks against one process, the
+serve-shape helpers of the registry, and the port's ``serve_demo`` on the
+CPU.
 
 Tolerances:
-* shapes, dtypes, the registry's serve adjustments and the demo's prompt:
-  equal exactly;
+* shapes, dtypes, the registry's serve adjustments, the demo's prompt and
+  every leaf's placement: equal exactly;
+* the data-2 serve, float32, against one process on the whole batch:
+  logits and the cache's float leaves within ``1e-5`` of the largest,
+  ``pos`` exactly;
 * prefill logits and decode logits in float32 compute (float32 scores):
   within ``1e-5`` of the largest logit; decode's ``pos`` leaves exactly;
 * the demo's first logits, bfloat16 compute: the reference's ``TOL =
@@ -28,7 +34,9 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
+from repro_torch.dist import comm  # noqa: E402
 from repro_torch.dist import serve as tserve  # noqa: E402
+from repro_torch.dist import sharding as tsh  # noqa: E402
 from repro_torch.examples import serve_demo  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -162,7 +170,7 @@ def test_build_prefill_equals_reference(float32_scores, arch):
         want = jax.jit(jpre)(jax.tree.map(jnp.asarray, pn),
                              None if tok is None else jnp.asarray(tok),
                              None if emb is None else jnp.asarray(emb))
-    tpre = tserve.build_prefill(tc, "cpu")
+    tpre, _ = tserve.build_prefill(tc, "cpu")
     got = tpre(ttf.params_from_jax(tc, pn), tok, emb)
     assert not got.requires_grad
     _close(got, want, arch)
@@ -176,7 +184,7 @@ def test_build_decode_equals_reference(arch):
     mesh = _mesh()
     jdec, _ = jserve.build_decode(jc, mesh)
     jdec = jax.jit(jdec)
-    tdec = tserve.build_decode(tc, "cpu")
+    tdec, _ = tserve.build_decode(tc, "cpu")
     jp = jax.tree.map(jnp.asarray, pn)
     tp = ttf.params_from_jax(tc, pn)
     jcache = jtf.init_cache(jc, 2, 8)
@@ -211,11 +219,11 @@ def test_bfloat16_params_serve_in_bfloat16():
                                       np.asarray(dict(_walk(pn))[path],
                                                  np.float32))
     toks = np.random.default_rng(0).integers(0, tc.vocab_size, (1, 8))
-    logits = tserve.build_prefill(tc, "cpu")(tp, toks)
+    logits = tserve.build_prefill(tc, "cpu")[0](tp, toks)
     assert logits.shape == (1, 8, tc.vocab_size)
     cache = ttf.init_cache(tc, 1, 8)
-    lg, cache = tserve.build_decode(tc, "cpu")(tp, cache, toks[:, :1], None,
-                                               0)
+    lg, cache = tserve.build_decode(tc, "cpu")[0](tp, cache, toks[:, :1],
+                                                  None, 0)
     assert float((lg[:, 0].float() - logits[:, 0].float()).abs().max()) < TOL
 
 
@@ -266,7 +274,116 @@ def test_serve_demo_on_cpu(arch, window, capsys):
                             jnp.asarray(want_prompt[:, :1]), jnp.int32(0))
     tc = out["cfg"]
     tp = ttf.init_params(tc, prng.PRNGKey(0))
-    tl, _ = tserve.build_decode(tc, "cpu")(
+    tl, _ = tserve.build_decode(tc, "cpu")[0](
         tp, ttf.init_cache(tc, 2, 12), out["prompt"][:, :1], None, 0)
     assert float(np.abs(tl.float().numpy() - np.asarray(
         jl, np.float32)).max()) < TOL
+
+
+SERVE_SIZES = {"data": 16, "model": 16}
+JDTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+          torch.int32: jnp.int32}
+
+
+def _sds(tree):
+    """A meta tree of the port as the reference's ShapeDtypeStructs."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _sds(v) for k, v in tree.items()}
+    return jax.ShapeDtypeStruct(tuple(tree.shape), JDTYPE[tree.dtype])
+
+
+def _same_placement(got, want, leaf, what):
+    """One leaf's port NamedSharding against the reference's: the same
+    axis or None per dimension."""
+    if want is None:
+        assert got is None, what
+        return
+    ndim = len(leaf.shape)
+    spec = tuple(want.spec) + (None,) * (ndim - len(tuple(want.spec)))
+    assert tuple(got.spec) == spec, what
+
+
+def _same_tree(got, want, leaves, what):
+    g, w, lv = dict(_walk(got)), dict(_walk(want)), dict(_walk(leaves))
+    assert g.keys() == w.keys(), what
+    for path in w:
+        _same_placement(g[path], w[path], lv[path], (what, path))
+
+
+@pytest.mark.parametrize("arch", treg.ARCH_IDS)
+def test_shardings_equal_reference(arch):
+    """``shardings_fn`` of both builders, every ``embed_mode`` and
+    ``cache_mode``, at the reference's abstract (data 16, model 16) mesh:
+    each parameter, cache, batch and position leaf placed as the
+    reference's ``NamedSharding`` places it."""
+    amesh = jax.sharding.AbstractMesh((16, 16), ("data", "model"))
+    shape = treg.shape_by_name("decode_32k")
+    tc, jc = treg.get_config(arch), jreg.get_config(arch)
+    clen = treg.cache_len(tc, shape)
+    params, cache, tok, emb, pos = tserve.serve_shapes(tc, shape, clen)
+    jp, jcache, jtok, jemb = _sds(params), _sds(cache), _sds(tok), \
+        _sds(emb)
+    for mode in ("vocab", "dmodel"):
+        _, jsh_ = jserve.build_prefill(jc, amesh, embed_mode=mode)
+        _, tsh_ = tserve.build_prefill(tc, SERVE_SIZES, embed_mode=mode)
+        want, got = jsh_(jp, jtok, jemb), tsh_(params, tok, emb)
+        _same_tree(got[0], want[0], params, (mode, "params"))
+        for g, w, leaf in zip(got[1:], want[1:], (tok, emb), strict=True):
+            _same_placement(g, w, leaf, (mode, "batch"))
+    for mode in ("auto", "inner", "seq"):
+        _, jsh_ = jserve.build_decode(jc, amesh, cache_mode=mode)
+        _, tsh_ = tserve.build_decode(tc, SERVE_SIZES, cache_mode=mode)
+        want = jsh_(jp, jcache, jtok, jemb)
+        got = tsh_(params, cache, tok, emb)
+        _same_tree(got[0], want[0], params, (mode, "params"))
+        _same_tree(got[1], want[1], cache, (mode, "cache"))
+        for g, w, leaf in zip(got[2:], want[2:], (tok, emb, pos),
+                              strict=True):
+            _same_placement(g, w, leaf, (mode, "batch"))
+    step, _ = tserve.build_prefill(tc, SERVE_SIZES)
+    with pytest.raises(ValueError, match="abstract mesh"):
+        step({}, np.zeros((2, 2), np.int32))
+
+
+def test_data_two_serve_equals_one_process():
+    """(data 2, model 1) over two gloo ranks, each on its half of the
+    batch, against one process on the whole batch (float32)."""
+    from torch.distributed.tensor import Replicate, Shard
+    tc = dataclasses.replace(treg.get_config("qwen1.5-0.5b").reduced(
+        n_layers=1, d_model=64, vocab=128), compute_dtype="float32")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, 128, (4, 8)))
+    steps = 4
+    # the ranks' function lives in a test module that does not import JAX,
+    # which each rank would otherwise import to find it
+    from test_torch_multirank import serve_ranks
+    ranks = comm.spawn(serve_ranks, 2, (tc, toks, steps), timeout_s=240,
+                       deadline_s=240)
+    params = ttf.init_params(tc, prng.PRNGKey(0))
+    prefill, _ = tserve.build_prefill(tc, "cpu")
+    decode, _ = tserve.build_decode(tc, "cpu")
+    want = [prefill(params, toks)]
+    cache = ttf.init_cache(tc, toks.shape[0], steps)
+    for t in range(steps):
+        lg, cache = decode(params, cache, toks[:, t:t + 1], None, t)
+        want.append(lg)
+    sizes = {"data": 2, "model": 1}
+    specs = tsh.cache_specs(cache, sizes)
+    assert [r["coords"]["data"] for r in ranks] == [0, 1]
+    for r in ranks:
+        assert "tensor-parallel serve" in r["refused"]
+        assert r["tok_spec"] == ("data", None) and r["pos_spec"] == ()
+        assert r["placements"] == [Shard(0), Replicate()]
+        rows = slice(2 * r["coords"]["data"], 2 * r["coords"]["data"] + 2)
+        for g, w in zip(r["logits"], want, strict=True):
+            assert g.shape == w[rows].shape
+            _close(g, w[rows].numpy(), "logits")
+        for path, w in _walk(cache):
+            spec = dict(_walk(specs))[path]
+            w = w[tsh.local_index(spec, tuple(w.shape), sizes, r["coords"])]
+            g = dict(_walk(r["cache"]))[path]
+            if path[-1] == "pos":
+                assert torch.equal(g, w)
+            else:
+                _close(g, w.numpy(), path)

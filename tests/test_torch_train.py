@@ -1,7 +1,7 @@
 """The port's train entry point on the CPU at a tiny size: the kernel path,
 the generic path, the fault and time-varying-plan flags with their effect,
-the refusals of flags whose features are not ported yet, and the rule that
-nothing drops to the CPU or to a plain version on its own."""
+``--devices`` on the CPU, the refusal of ``--lint`` (not ported), and the
+rule that nothing drops to the CPU or to a plain version on its own."""
 import ast
 import math
 import os
@@ -41,11 +41,24 @@ def test_train_entry_runs_on_cpu():
     assert not state["params"][:, step.d_model_total:].any()
 
 
-@pytest.mark.parametrize("flags", [["--lint"], ["--devices", "8"]],
-                         ids=lambda f: f[0])
+@pytest.mark.parametrize("flags", [["--lint"]], ids=lambda f: f[0])
 def test_unported_flags_refuse(flags):
     with pytest.raises(SystemExit, match="not ported"):
         train.run(TINY + flags)
+
+
+def test_devices_flag_runs_on_cpu():
+    """``--devices 2 --device cpu`` starts two ranks over gloo (the CLI's
+    own processes) and trains: the reference's factoring puts the reduced
+    config's 4 nodes on 2 (``n_nodes = min(n_nodes, devices)``), one per
+    rank, and rank 0's record comes back."""
+    i = TINY.index("--nodes")
+    out = train.run(TINY[:i] + TINY[i + 2:] + ["--devices", "2"])
+    assert out["mesh"] == {"node": 2, "fsdp": 1, "model": 1}
+    assert out["cfg"].n_nodes == 2
+    assert len(out["losses"]) == 4 and all(math.isfinite(v)
+                                           for v in out["losses"])
+    assert out["triggers"][-1] > 0 and out["bits"][-1] > 0
 
 
 def _run_logged(argv):
