@@ -129,8 +129,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       time-varying trainer over two ranks, mixing through the row gather,
       equal to one process bit for bit; a checkpoint saved at
       ``--devices 4``, restored in one process and continued, equal to the
-      unbroken run bit for bit; and the serve builders over a (data 2,
-      model 1) mesh against one process in float32;
+      unbroken run bit for bit; the serve builders over a (data 2,
+      model 1) mesh against one process in float32; tensor-parallel
+      serve over (data 1, model 2), each of the two ranks holding only its
+      blocks of the parameters and the cache: qwen1.5-0.5b at full width
+      and depth (prefill 1 x 512, 16 teacher-forced decode steps) and the
+      reduced MoE, MLA with MTP, SSM and hybrid configs, the dense one with
+      its cache on the slots and with the embedding over d_model, in
+      float32 against the one-process card run (logits within 1e-5 of the
+      largest, cache shards against their blocks, pos exactly; parameter
+      bytes, peak and times per rank, the times a correctness run's); and
+      reduced deepseek-moe-16b trained over (node 1, fsdp 2), every MoE
+      layer routing the node's whole microbatch over the pair: the first
+      step's tables joined over the ranks equal to the one-process run's,
+      losses within 1e-5, x_hat within the flips rule, SignTopK held
+      against its plain version on each rank's tiles;
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -767,7 +780,9 @@ def phase_suites(torch, dev, counts, zero_counts, read_counts) -> None:
 
 class RouteLog:
     """Every call of ``moe.route`` while installed, in order: the slot table
-    and the aux kept on the device (no host sync inside a step)."""
+    and the aux kept on the device (no host sync inside a step), the token
+    count, top-k and the caller's rank in its fsdp group (None in one
+    process)."""
 
     def __init__(self):
         self.calls = []
@@ -776,10 +791,12 @@ class RouteLog:
         from repro_torch.models import moe
         self.real = moe.route
 
-        def route(cfg, w, x):
-            out = self.real(cfg, w, x)
+        def route(cfg, w, x, **kw):
+            out = self.real(cfg, w, x, **kw)
+            group = kw.get("group")
             self.calls.append((out[0].detach().clone(), out[2].detach(),
-                               x.shape[0], cfg.moe_top_k))
+                               x.shape[0], cfg.moe_top_k,
+                               None if group is None else group.rank))
             return out
         moe.route = route
         return self
@@ -924,7 +941,7 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
     for si in range(6):
         dropped, auxs = [], []
         for i in range(n):
-            (fw, aux, t_count, k), (re, aux_re, _, _) = \
+            (fw, aux, t_count, k, _), (re, aux_re, _, _, _) = \
                 calls[(si * n + i) * 2:(si * n + i) * 2 + 2]
             if not torch.equal(fw, re) or not torch.equal(aux, aux_re):
                 raise AssertionError(f"moe trainer: step {si + 1} node {i}: "
@@ -1106,9 +1123,9 @@ class SharedLog:
         from repro_torch.models import transformer
         self.real, self.calls = transformer._hybrid_block, 0
 
-        def block(cfg, bp, x, positions, shared):
+        def block(cfg, bp, x, positions, shared, **kw):
             self.calls += shared is not None
-            return self.real(cfg, bp, x, positions, shared)
+            return self.real(cfg, bp, x, positions, shared, **kw)
         transformer._hybrid_block = block
         return self
 
@@ -1787,11 +1804,176 @@ def _shard_quad_rank(rank, fsdp_argv, ckpt_argv):
             "ckpt_saves": saved["saves"]}
 
 
-def _shard_pair_rank(rank, fault_argv, serve_tokens, decode_steps):
-    """Phase 3n runs 4 and 6, one rank of two: the reduced faulty,
+# runs 7-9 of phase 3n, in the pair of ranks: tensor-parallel serve over
+# (data 1, model 2), and the MoE trainer over (node 1, fsdp 2)
+TP_FULL_PROMPT, TP_FULL_STEPS = 512, 16     # qwen1.5-0.5b at full width
+TP_RED_PROMPT, TP_RED_STEPS = 16, 8         # the reduced families
+# (arch, embed_mode, cache_mode) of the reduced tensor-parallel serves
+TP_RED_CASES = (("deepseek-moe-16b", "vocab", "auto"),
+                ("deepseek-v3-671b", "vocab", "auto"),
+                ("mamba2-370m", "vocab", "auto"),
+                ("zamba2-7b", "vocab", "auto"),
+                ("qwen1.5-0.5b", "vocab", "seq"),
+                ("qwen1.5-0.5b", "dmodel", "auto"))
+TP_LABEL = ("gloo through pinned host buffers, two ranks on one card: a "
+            "correctness run, not a speed figure")
+MOE_FSDP_ARGS = [a if a != "qwen1.5-0.5b" else "deepseek-moe-16b"
+                 for a in MAIN_ARGS] + ["--reduced"]
+MOE_FSDP_ARGS[MOE_FSDP_ARGS.index("--nodes") + 1] = "1"
+MOE_FSDP_RTOL = 1e-5        # its losses against one process, float32
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def tp_serve(torch, dev, cfg, mesh, toks, steps, cache_len,
+             embed_mode="vocab", cache_mode="auto"):
+    """Prefill of ``toks`` and ``steps`` teacher-forced decode steps from an
+    empty cache of ``cache_len`` slots, through the serve builders on
+    ``mesh``: a serve ``DeviceMesh`` (the rank's blocks are cut from the
+    whole trees with ``serve.local_shard`` and the whole trees dropped) or
+    ``dev`` (one process). Returns the logits and the cache on the host,
+    the bytes of the prefill's parameter tree, the peak after the cut, and
+    the times."""
+    from repro_torch.core import prng
+    from repro_torch.dist import serve
+    from repro_torch.models.transformer import init_cache, init_params
+    prefill, pre_sh = serve.build_prefill(cfg, mesh, embed_mode=embed_mode)
+    decode, dec_sh = serve.build_decode(cfg, mesh, cache_mode=cache_mode)
+    params = init_params(cfg, prng.PRNGKey(0).to(dev))
+    cache = init_cache(cfg, toks.shape[0], cache_len, device=dev)
+    whole_bytes = _tree_bytes(params)
+    pre = dec = params
+    if mesh is not dev:
+        ps, _, _ = pre_sh(params, toks, None)
+        pre = serve.local_shard(params, ps, mesh)
+        ps, cs, _, _, _ = dec_sh(params, cache, toks[:, :1], None)
+        dec = pre if embed_mode == "vocab" else \
+            serve.local_shard(params, ps, mesh)
+        cache = serve.local_shard(cache, cs, mesh)
+        del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = _tree_bytes(pre)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    first = prefill(pre, toks)
+    _sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    logits, step_s = [first.cpu()], []
+    del first
+    for t in range(steps):
+        t0 = time.perf_counter()
+        lg, cache = decode(dec, cache, toks[:, t:t + 1], None, t)
+        _sync(torch, dev)
+        step_s.append(time.perf_counter() - t0)
+        logits.append(lg.cpu())
+    return {"logits": logits, "cache": _to_host(cache), "param_bytes": held,
+            "whole_bytes": whole_bytes,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "prefill_s": prefill_s, "step_s": step_s}
+
+
+def _tp_rank(torch, dev, full_toks, red_toks):
+    """Runs 7 and 8 on one rank of the pair: qwen1.5-0.5b at full width and
+    the reduced families over (data 1, model 2), float32 compute and
+    scores."""
+    import dataclasses
+    import functools
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.kernels.qsgd import qsgd_blocks
+    from repro_torch.kernels.sign_topk import sign_topk_blocks
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import attention
+    smesh = sharding.serve_mesh(make_production_mesh(model=2))
+    kernels = (sign_topk_blocks, qsgd_blocks)
+    for fn in kernels:
+        fn.launches = 0
+    chunked = attention.chunked_attention
+    attention.chunked_attention = functools.partial(
+        chunked, score_dtype=torch.float32)
+    try:
+        qwen = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                                   compute_dtype="float32")
+        full = tp_serve(torch, dev, qwen, smesh, torch.as_tensor(full_toks),
+                        TP_FULL_STEPS, TP_FULL_PROMPT)
+        if sharding.coordinates(smesh)["model"]:
+            full["logits"][0] = None    # rank 0's whole prefill logits
+        red = {}
+        for arch, emb, cm in TP_RED_CASES:
+            cfg = Float32Reduced(get_config(arch),
+                                 param_dtype="float32").reduced()
+            red[(arch, emb, cm)] = tp_serve(
+                torch, dev, cfg, smesh, torch.as_tensor(red_toks[arch]),
+                TP_RED_STEPS, TP_RED_PROMPT, emb, cm)
+    finally:
+        attention.chunked_attention = chunked
+    return {"coords": sharding.coordinates(smesh), "full": full,
+            "reduced": red,
+            "launches": {fn.__name__: fn.launches for fn in kernels}}
+
+
+def _moe_fsdp_rank(rank, torch, k_b):
+    """Run 9 on one rank of the pair: reduced deepseek-moe-16b in float32
+    compute and scores through the train entry over (node 1, fsdp 2); the
+    first step's routing tables, SignTopK held against its plain version on
+    the rank's tiles at the last sync (those launches not counted)."""
+    import functools
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.sign_topk import BLOCK, sign_topk_blocks
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import attention
+    check = {}
+
+    def at_sync(diff, info):
+        if info["t"] == 5:
+            before = sign_topk_blocks.launches
+            check["err"] = parity.check_sign_topk_chunked(
+                diff.view(-1, BLOCK), k_b, PLAIN_ROWS,
+                spec=f"moe fsdp rank {rank} last sync")
+            check["tiles"] = diff.numel() // BLOCK
+            sign_topk_blocks.launches = before
+    chunked = attention.chunked_attention
+    attention.chunked_attention = functools.partial(
+        chunked, score_dtype=torch.float32)
+    try:
+        with ArchRegistry(lambda c: Float32Reduced(c)):
+            cfg, _ = train.configs(MOE_FSDP_ARGS)
+            mesh = sharding.train_mesh(make_production_mesh(), cfg)
+            sign_topk_blocks.launches = 0
+            with RouteLog() as routes:
+                r = train.run(MOE_FSDP_ARGS, mesh=mesh, on_sync=at_sync)
+    finally:
+        attention.chunked_attention = chunked
+    per_step = len(routes.calls) // 6
+    out = {k: r[k] for k in ("losses", "bits", "triggers", "mesh")}
+    out.update(rows=r["train_step"].rows, coords=sharding.coordinates(mesh),
+               launches=sign_topk_blocks.launches, check=check,
+               routes=[(c[0].cpu(), c[2], c[4]) for c in
+                       routes.calls[:per_step]], **_host_rows(r["state"]))
+    return out
+
+
+def _shard_pair_rank(rank, fault_argv, serve_tokens, decode_steps,
+                     tp_full_toks, tp_red_toks, k_b):
+    """Phase 3n runs 4 and 6-9, one rank of two: the reduced faulty,
     time-varying trainer over (node 2) through the train entry (dense mixing
-    through the row gather), then the reduced serve over (data 2, model
-    1) in float32 compute."""
+    through the row gather), the reduced serve over (data 2, model 1) in
+    float32 compute, the tensor-parallel serves over (data 1, model 2)
+    (runs 7 and 8) and the reduced MoE trainer over (node 1, fsdp 2) (run
+    9)."""
     import dataclasses
     import torch
     from repro_torch.configs.registry import get_config
@@ -1831,10 +2013,20 @@ def _shard_pair_rank(rank, fault_argv, serve_tokens, decode_steps):
     for t in range(decode_steps):
         lg, cache = decode(params, cache, toks[:, t:t + 1], None, t)
         logits.append(lg.cpu())
-    return {"dense": dense, "serve_logits": logits,
-            "serve_cache": {k: {kk: vv.cpu() for kk, vv in v.items()}
-                            for k, v in cache.items()},
-            "serve_coords": sharding.coordinates(smesh)}
+    out = {"dense": dense, "serve_logits": logits,
+           "serve_cache": {k: {kk: vv.cpu() for kk, vv in v.items()}
+                           for k, v in cache.items()},
+           "serve_coords": sharding.coordinates(smesh)}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["tp"] = _tp_rank(torch, dev, tp_full_toks, tp_red_toks)
+    out["tp"]["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["moe_fsdp"] = _moe_fsdp_rank(rank, torch, k_b)
+    out["moe_fsdp"]["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def phase_shard(torch, dev, train, counts, zero_counts, read_counts,
@@ -1988,7 +2180,14 @@ def phase_shard(torch, dev, train, counts, zero_counts, read_counts,
                                compute_dtype="float32")
     toks = rng.integers(0, scfg.vocab_size, (4, 32)).astype(np.int64)
     steps = 8
-    pair = comm.spawn(_shard_pair_rank, 2, (fault_argv, toks, steps),
+    qwen_vocab = get_config("qwen1.5-0.5b").vocab_size
+    tp_full_toks = rng.integers(0, qwen_vocab, (1, TP_FULL_PROMPT))
+    tp_red_toks = {arch: rng.integers(
+        0, Float32Reduced(get_config(arch)).reduced().vocab_size,
+        (2, TP_RED_PROMPT)) for arch, _, _ in TP_RED_CASES}
+    pair = comm.spawn(_shard_pair_rank, 2,
+                      (fault_argv, toks, steps, tp_full_toks, tp_red_toks,
+                       main_rec["k_b"]),
                       device_type="cuda", timeout_s=SHARD_TIMEOUT_S,
                       deadline_s=SHARD_TIMEOUT_S)
     done = train.run(fault_argv)
@@ -2046,7 +2245,188 @@ def phase_shard(torch, dev, train, counts, zero_counts, read_counts,
         f"and cache; {time.perf_counter() - t0:.1f} s for runs 4 and 6 "
         f"({card})")
     rec["serve_gap"] = gap
+    del want, cache
+    torch.cuda.empty_cache()
+    rec["tp"] = check_tp_serve(torch, dev, pair, tp_full_toks, tp_red_toks,
+                               card)
+    counts["tp_serve"] = {name: sum(p["tp"]["launches"][name] for p in pair)
+                          for name in ("sign_topk_blocks", "qsgd_blocks")}
+    rec["moe_fsdp"] = check_moe_fsdp(torch, dev, train, pair,
+                                     main_rec["k_b"], counts, card)
     return rec
+
+
+def _cache_gap(torch, got, want, spec_tree, sizes, coords, what):
+    """The largest gap of a rank's cache shard from the one-process cache's
+    block, over the block's largest entry; ``pos`` must be equal."""
+    from repro_torch.dist import sharding
+    gap = 0.0
+    for k, sub in want.items():
+        if isinstance(sub, dict):
+            gap = max(gap, _cache_gap(torch, got[k], sub, spec_tree[k],
+                                      sizes, coords, f"{what}/{k}"))
+            continue
+        w = sub[sharding.local_index(spec_tree[k].spec, tuple(sub.shape),
+                                     sizes, coords)]
+        g = got[k]
+        if tuple(g.shape) != tuple(w.shape):
+            raise AssertionError(f"{what}/{k}: shard {tuple(g.shape)} != "
+                                 f"block {tuple(w.shape)}")
+        if k == "pos":
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}/pos differs")
+            continue
+        scale = float(w.abs().max()) or 1.0
+        gap = max(gap, float((g.float() - w.float()).abs().max()) / scale)
+    return gap
+
+
+def check_tp_serve(torch, dev, pair, full_toks, red_toks, card):
+    """Runs 7 and 8 against the one-process card run: logits within
+    ``SERVE_SHARD_RTOL`` of the largest, each rank's cache shard against
+    its block, ``pos`` exactly; the parameter bytes each rank holds."""
+    import dataclasses
+    import functools
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import serve
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import param_shapes
+    sizes = {"data": 1, "model": 2}
+    ranks = sorted((p["tp"] for p in pair), key=lambda r:
+                   r["coords"]["model"])
+    chunked = attention.chunked_attention
+    attention.chunked_attention = functools.partial(
+        chunked, score_dtype=torch.float32)
+    out = {}
+    try:
+        cases = [("qwen1.5-0.5b full", dataclasses.replace(
+            get_config("qwen1.5-0.5b"), compute_dtype="float32"),
+            full_toks, TP_FULL_STEPS, TP_FULL_PROMPT, "vocab", "auto",
+            [r["full"] for r in ranks])]
+        for arch, emb, cm in TP_RED_CASES:
+            cfg = Float32Reduced(get_config(arch),
+                                 param_dtype="float32").reduced()
+            cases.append((f"{arch} reduced {emb}/{cm}", cfg, red_toks[arch],
+                          TP_RED_STEPS, TP_RED_PROMPT, emb, cm,
+                          [r["reduced"][(arch, emb, cm)] for r in ranks]))
+        for name, cfg, toks, steps, clen, emb, cm, got in cases:
+            toks = torch.as_tensor(toks)
+            want = tp_serve(torch, dev, cfg, dev, toks, steps, clen, emb, cm)
+            gap = 0.0
+            for r in got:
+                for g, w in zip(r["logits"], want["logits"], strict=True):
+                    if g is None:
+                        continue
+                    gap = max(gap, float((g - w).abs().max())
+                              / float(w.abs().max()))
+            _, dec_sh = serve.build_decode(cfg, sizes, cache_mode=cm)
+            _, cspecs, _, _, _ = dec_sh(param_shapes(cfg), want["cache"],
+                                        toks[:, :1], None)
+            cgap = max(_cache_gap(torch, r["cache"], want["cache"], cspecs,
+                                  sizes, {"data": 0, "model": m}, name)
+                       for m, r in enumerate(got))
+            if gap > SERVE_SHARD_RTOL or cgap > SERVE_SHARD_RTOL:
+                raise AssertionError(f"tensor-parallel serve {name}: logits "
+                                     f"gap {gap:.3e}, cache gap {cgap:.3e} "
+                                     f"of the largest")
+            out[name] = {"gap": gap, "cache_gap": cgap,
+                         "param_bytes": [r["param_bytes"] for r in got],
+                         "whole_bytes": want["whole_bytes"],
+                         "peak_gb": [r["peak_gb"] for r in got],
+                         "one_peak_gb": want["peak_gb"],
+                         "prefill_s": [r["prefill_s"] for r in got],
+                         "step_s_median": [median(r["step_s"])
+                                           for r in got],
+                         "one_prefill_s": want["prefill_s"],
+                         "one_step_s_median": median(want["step_s"])}
+            o = out[name]
+            log(f"tensor-parallel serve (data 1, model 2), {name}, float32 "
+                f"({toks.shape[0]} x {toks.shape[1]} prefill, {steps} "
+                f"decode steps, embed {emb}, cache {cm}): logits == one "
+                f"process within {gap:.3e} of the largest, cache shards "
+                f"within {cgap:.3e}, pos equal; parameter bytes per rank "
+                f"{o['param_bytes']} of {o['whole_bytes']} whole; peak per "
+                f"rank {[round(v, 3) for v in o['peak_gb']]} GB (one "
+                f"process {o['one_peak_gb']:.3f}); prefill "
+                f"{[round(v, 4) for v in o['prefill_s']]} s, decode median "
+                f"{[round(v, 4) for v in o['step_s_median']]} s/step (one "
+                f"process {o['one_prefill_s']:.4f} s, "
+                f"{o['one_step_s_median']:.4f} s/step) -- {TP_LABEL} "
+                f"({card})")
+            del want
+            torch.cuda.empty_cache()
+    finally:
+        attention.chunked_attention = chunked
+    log(f"tensor-parallel serve: the pair's runs 7 and 8 took "
+        f"{[round(r['wall_s'], 1) for r in ranks]} s ({card})")
+    return out
+
+
+def check_moe_fsdp(torch, dev, train, pair, k_b, counts, card):
+    """Run 9 against the one-process card run: the first step's routing
+    tables joined over the pair equal to the whole microbatch's, losses
+    within ``MOE_FSDP_RTOL``, bits and triggers equal, x_hat within the
+    flips rule, SignTopK == plain on every rank's tiles at the last
+    sync."""
+    import functools
+    import numpy as np
+    from repro_torch.models import attention
+    ranks = sorted((p["moe_fsdp"] for p in pair), key=lambda r:
+                   r["coords"]["fsdp"])
+    chunked = attention.chunked_attention
+    attention.chunked_attention = functools.partial(
+        chunked, score_dtype=torch.float32)
+    try:
+        with ArchRegistry(lambda c: Float32Reduced(c)), RouteLog() as log_:
+            one = train.run(MOE_FSDP_ARGS)
+    finally:
+        attention.chunked_attention = chunked
+    want = [(c[0].cpu(), c[2]) for c in log_.calls[:len(ranks[0]["routes"])]]
+    for i, (w_tfs, w_t) in enumerate(want):
+        joined = torch.full_like(w_tfs, w_t)
+        base = 0
+        for r in ranks:
+            tfs, t, grank = r["routes"][i]
+            if grank != r["coords"]["fsdp"]:
+                raise AssertionError("moe fsdp: a route without its group")
+            own = tfs < t
+            if bool((own & (joined < w_t)).any()):
+                raise AssertionError("moe fsdp: a slot held by two ranks")
+            joined = torch.where(own, tfs + base, joined)
+            base += t
+        if base != w_t or not torch.equal(joined, w_tfs):
+            raise AssertionError(f"moe fsdp: routing call {i} differs from "
+                                 f"the whole microbatch's")
+    for r in ranks:
+        if r["bits"] != one["bits"] or r["triggers"] != one["triggers"]:
+            raise AssertionError("moe fsdp: bits or triggers differ")
+        np.testing.assert_allclose(r["losses"], one["losses"],
+                                   rtol=MOE_FSDP_RTOL,
+                                   err_msg="moe fsdp: losses")
+        if r["launches"] != 2 or "err" not in r["check"]:
+            raise AssertionError(f"moe fsdp: {r['launches']} launches, "
+                                 f"check {r['check']}")
+    fl = flips_only(ranks[0], _host_rows(one["state"]))
+    gap = max(abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"],
+                                                   one["losses"]))
+    k = one["cfg"].moe_top_k
+    dropped = [w_t * k - int((w_tfs < w_t).sum()) for w_tfs, w_t in want]
+    counts["sharded_moe_fsdp"] = {"sign_topk_blocks": sum(
+        r["launches"] for r in ranks), "qsgd_blocks": 0}
+    log(f"moe fsdp (node 1 x fsdp 2, reduced deepseek-moe-16b, float32): "
+        f"mesh {ranks[0]['mesh']}; the first step's routing joined over the "
+        f"pair == the whole microbatch's ({want[0][0].numel()} slots, "
+        f"{dropped} choices dropped); losses {ranks[0]['losses']} (one "
+        f"process {one['losses']}), largest relative gap {gap:.3e}; bits "
+        f"and triggers equal; x_hat beyond 5e-4 on {fl['xhat_far']} entries "
+        f"in {fl['flip_tiles']} of {fl['tiles']} tiles; params gap "
+        f"{fl['params_gap']:.3e}; SignTopK == plain on each rank's "
+        f"{ranks[0]['check']['tiles']} tiles at t=5, max abs err "
+        f"{max(r['check']['err'] for r in ranks):.3e}; launches "
+        f"{counts['sharded_moe_fsdp']}; {ranks[0]['wall_s']:.1f} s ({card})")
+    return {"loss_gap": gap, "max_abs_err": max(r["check"]["err"]
+                                                for r in ranks),
+            "flips": fl}
 
 
 def main() -> int:
@@ -2801,7 +3181,8 @@ def main() -> int:
     t0 = time.perf_counter()
     shard_rec = phase_shard(torch, dev, train, counts, zero_counts,
                             read_counts, main_rec)
-    max_err = max(max_err, shard_rec["trainer"]["max_abs_err"])
+    max_err = max(max_err, shard_rec["trainer"]["max_abs_err"],
+                  shard_rec["moe_fsdp"]["max_abs_err"])
     log(f"phase 3n: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------- 4. report

@@ -14,6 +14,12 @@ from typing import Callable, Sequence
 import torch
 
 
+def periodic_sync_mask(T: int, H: int) -> torch.Tensor:
+    """Bool mask ``m[t] = ((t + 1) in I_T)`` for t in [0, T)."""
+    t = torch.arange(1, T + 1)
+    return (t % H) == 0
+
+
 def is_sync(t: int, H: int) -> bool:
     """(t+1) in I_T for periodic I_T with gap H."""
     return ((t + 1) % H) == 0

@@ -182,11 +182,21 @@ class Topology:
         """Consensus stepsize of Lemma 6."""
         return _lemma6_gamma(self.delta, self.beta, omega)
 
+    def p(self, omega: float) -> float:
+        """``gamma_star(omega) * delta / 8``, the rate of Theorems 1-2."""
+        return self.gamma_star(omega) * self.delta / 8.0
+
     @property
     def degrees(self) -> np.ndarray:
         """Neighbor count per node, excluding self whatever the diagonal
         holds: the one degree both engines charge bits with."""
         return (self.w > 0).sum(1) - (np.diagonal(self.w) > 0)
+
+    def neighbors(self, i: int) -> np.ndarray:
+        """Node ``i``'s neighbours (positive weight, itself excluded)."""
+        mask = self.w[i] > 0
+        mask[i] = False
+        return np.nonzero(mask)[0]
 
     def validate(self, atol: float = 1e-10, *,
                  require_connected: bool = True) -> None:
@@ -343,6 +353,10 @@ class GossipPlan:
         """Support size: round r uses ws[r % R]."""
         return self.ws.shape[0]
 
+    @property
+    def is_static(self) -> bool:
+        return self.R == 1
+
     def round_topology(self, r: int) -> Topology:
         r = r % self.R
         return Topology(w=self.ws[r], name=f"{self.name}[{r}]")
@@ -356,6 +370,11 @@ class GossipPlan:
         return Topology(w=self.w_bar, name=f"{self.name}:avg").delta
 
     @property
+    def beta_max(self) -> float:
+        """Worst-case ``||W_r - I||_2`` over the support."""
+        return max(self.round_topology(r).beta for r in range(self.R))
+
+    @property
     def degrees(self) -> np.ndarray:
         """(R, n) per-round neighbor counts."""
         return np.stack([self.round_topology(r).degrees
@@ -365,6 +384,10 @@ class GossipPlan:
         d = self.delta_eff
         return min(_lemma6_gamma(d, self.round_topology(r).beta, omega)
                    for r in range(self.R))
+
+    def p(self, omega: float) -> float:
+        """``gamma_star(omega) * delta_eff / 8``."""
+        return self.gamma_star(omega) * self.delta_eff / 8.0
 
     def validate(self, atol: float = 1e-10) -> None:
         """Every round symmetric doubly stochastic; connected on average."""

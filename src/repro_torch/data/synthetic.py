@@ -14,7 +14,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +48,13 @@ class TokenPipeline:
             nxt = (a * toks[:, t] + b) % v
             toks[:, t + 1] = np.where(noise[:, t], rand[:, t], nxt)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def node_batches(self, node: int) -> Iterator[Dict[str, np.ndarray]]:
+        """Node ``node``'s batches for steps 0, 1, 2, ..., without end."""
+        step = 0
+        while True:
+            yield self.batch(node, step)
+            step += 1
 
     def global_batch(self, step: int) -> Dict[str, np.ndarray]:
         """(n_nodes, batch_per_node, seq) stacked batch for the train step."""

@@ -28,3 +28,12 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r}: use cuda or cpu")
     return dev
+
+
+def resolve_or_meta(device: Union[str, torch.device, None] = "cuda"
+                    ) -> torch.device:
+    """``meta`` as it is (shapes and dtypes without memory), any other
+    device through :func:`resolve_device`."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)

@@ -16,6 +16,12 @@ calls them by hand, over the groups of a ``(node, fsdp, model)``
   norms, losses) of every node-axis rank;
 * :meth:`NodeComm.sum_fsdp`: the sum over the fsdp group, in place.
 
+:class:`GroupComm` holds the collectives of one group that the models
+call: the fsdp group's routing sums of a MoE layer
+(:func:`repro_torch.models.moe.route`) and the ``model`` axis of a serve
+mesh (:mod:`repro_torch.models.parallel`): an out-of-place all-reduce and an
+all-gather along a dimension.
+
 With one rank on an axis, its functions are the identity (the vector gather
 still goes through the group's collective). Gloo cannot send, receive or
 gather CUDA tensors, so under gloo a CUDA block is staged through pinned
@@ -145,44 +151,13 @@ def spawn(fn: Callable[..., Any], nprocs: int, args: Sequence = (), *,
                            weights_only=False) for r in range(nprocs)]
 
 
-class NodeComm:
-    """The engine's collectives over a ``(node, fsdp, model)`` mesh (None:
-    one process, every function the identity). Rows ``[node_index * m,
-    (node_index + 1) * m)`` of every node-stacked buffer live on this rank;
-    ``seconds`` accumulates the host time spent in the row exchanges."""
+class _Staged:
+    """Reusable host buffers for staging a CUDA block under gloo (pinned,
+    allocated once per key and grown when a larger block comes)."""
 
-    def __init__(self, mesh: Any, device: torch.device):
-        self.device = device
-        self.seconds = 0.0
-        self._host: Dict[str, torch.Tensor] = {}
-        if mesh is None:
-            self.node_ax = self.fsdp = 1
-            self.node_index = self.fsdp_index = self.model_index = 0
-            self.node_group = self.fsdp_group = None
-            self.staged = False
-            self.backend, self.transport = "none", "none"
-            return
-        from repro_torch.dist.sharding import axis_sizes, coordinates
-        sizes, coords = axis_sizes(mesh), coordinates(mesh)
-        if tuple(mesh.mesh_dim_names) != ("node", "fsdp", "model"):
-            raise ValueError(f"the engine needs a (node, fsdp, model) mesh, "
-                             f"got {mesh.mesh_dim_names}")
-        self.node_ax, self.fsdp = sizes["node"], sizes["fsdp"]
-        self.node_index, self.fsdp_index, self.model_index = (
-            coords["node"], coords["fsdp"], coords["model"])
-        self.node_group = mesh.get_group("node")
-        self.fsdp_group = mesh.get_group("fsdp")
-        # the global rank of node k's row block at this rank's (fsdp, model)
-        self.peers = [int(r) for r in
-                      mesh.mesh[:, self.fsdp_index, self.model_index]]
-        if dist.get_process_group_ranks(self.node_group) != self.peers:
-            raise ValueError("the node group's ranks are not in node order")
-        self.backend = dist.get_backend(self.node_group)
-        self.staged = device.type == "cuda" and self.backend == "gloo"
-        self.transport = ("pinned host buffers" if self.staged else
-                          "host" if device.type == "cpu" else "device")
+    staged = False
+    _host: Dict[str, torch.Tensor]
 
-    # ------------------------------------------------------------- staging
     def _buffer(self, key: str, like: torch.Tensor, numel: int
                 ) -> torch.Tensor:
         """A reusable host buffer of ``numel`` elements of ``like``'s dtype
@@ -202,6 +177,90 @@ class NodeComm:
         if not self.staged:
             return out
         return self._buffer(key, out, out.numel()).view(out.shape)
+
+
+class GroupComm(_Staged):
+    """The collectives of one process group on ``device``, for the models:
+    an out-of-place all-reduce and an all-gather along a dimension. Under
+    gloo on a card they go through pinned host buffers (``_Staged``); every
+    call returns after its collective is done, so a buffer is free again
+    for the next call."""
+
+    def __init__(self, group: Any, device: torch.device):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.staged = device.type == "cuda" and \
+            dist.get_backend(group) == "gloo"
+        self._host = {}
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over the group (``op``: sum or max), a new
+        tensor on ``t``'s device."""
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        if not self.staged:
+            out = t.contiguous().clone()
+            dist.all_reduce(out, op=rop, group=self.group)
+            return out
+        host = self._stage_out(t.contiguous(), "reduce")
+        dist.all_reduce(host, op=rop, group=self.group)
+        return host.to(t.device)
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` (equal shapes, at least one dimension),
+        concatenated along ``dim`` in rank order. The bytes are moved as
+        they are (gloo gathers no 16-bit integers)."""
+        raw = t.contiguous().view(torch.uint8)
+        src = self._stage_out(raw, "gather_out")
+        land = torch.empty((self.size,) + tuple(raw.shape),
+                           dtype=torch.uint8, device=t.device)
+        land_h = self._landing(land, "gather_in")
+        dist.all_gather(list(land_h.unbind(0)), src, group=self.group)
+        if self.staged:
+            land.copy_(land_h)
+        return torch.cat(land.view(t.dtype).unbind(0), dim=dim)
+
+
+class NodeComm(_Staged):
+    """The engine's collectives over a ``(node, fsdp, model)`` mesh (None:
+    one process, every function the identity). Rows ``[node_index * m,
+    (node_index + 1) * m)`` of every node-stacked buffer live on this rank;
+    ``seconds`` accumulates the host time spent in the row exchanges."""
+
+    def __init__(self, mesh: Any, device: torch.device):
+        self.device = device
+        self.seconds = 0.0
+        self._host: Dict[str, torch.Tensor] = {}
+        if mesh is None:
+            self.node_ax = self.fsdp = 1
+            self.node_index = self.fsdp_index = self.model_index = 0
+            self.node_group = self.fsdp_group = None
+            self.fsdp_comm = None
+            self.staged = False
+            self.backend, self.transport = "none", "none"
+            return
+        from repro_torch.dist.sharding import axis_sizes, coordinates
+        sizes, coords = axis_sizes(mesh), coordinates(mesh)
+        if tuple(mesh.mesh_dim_names) != ("node", "fsdp", "model"):
+            raise ValueError(f"the engine needs a (node, fsdp, model) mesh, "
+                             f"got {mesh.mesh_dim_names}")
+        self.node_ax, self.fsdp = sizes["node"], sizes["fsdp"]
+        self.node_index, self.fsdp_index, self.model_index = (
+            coords["node"], coords["fsdp"], coords["model"])
+        self.node_group = mesh.get_group("node")
+        self.fsdp_group = mesh.get_group("fsdp")
+        # the MoE layers' routing sums over the fsdp group
+        self.fsdp_comm = (GroupComm(self.fsdp_group, device)
+                          if self.fsdp > 1 else None)
+        # the global rank of node k's row block at this rank's (fsdp, model)
+        self.peers = [int(r) for r in
+                      mesh.mesh[:, self.fsdp_index, self.model_index]]
+        if dist.get_process_group_ranks(self.node_group) != self.peers:
+            raise ValueError("the node group's ranks are not in node order")
+        self.backend = dist.get_backend(self.node_group)
+        self.staged = device.type == "cuda" and self.backend == "gloo"
+        self.transport = ("pinned host buffers" if self.staged else
+                          "host" if device.type == "cpu" else "device")
 
     # ---------------------------------------------------------- collectives
     def gather_vec(self, v: torch.Tensor) -> torch.Tensor:

@@ -11,12 +11,17 @@ rules (with ``embed_mode``'s embedding rewrite), cache leaves by
 ``sharding.cache_specs`` (``cache_mode``), the batch over ``data`` when it
 divides.
 
-The steps run under ``torch.no_grad()`` on the rank's device with the
-parameters replicated: each takes the global ``tokens`` or ``embeds`` and
-computes on its own ``data`` slice of the batch; the decode cache is the
-rank's shard (its batch rows, as :func:`local_shard` cuts it). Logits come
-back for the rank's slice. Executing a ``model`` axis larger than 1 (tensor
-parallelism) is not ported and raises.
+The steps run under ``torch.no_grad()`` on the rank's device. Each takes
+the global ``tokens`` or ``embeds`` and computes on its own ``data`` slice
+of the batch; the parameters and the decode cache are the rank's shards, as
+:func:`local_shard` cuts them from the trees ``shardings_fn`` places: over
+``data`` the cache's batch rows, over ``model`` the block of every leaf the
+reference's specs put on that axis, so that no rank holds a whole copy of
+such a leaf. A ``model`` axis larger than 1 runs tensor-parallel
+(:mod:`repro_torch.models.parallel`): the activations stay whole on every rank of
+the axis, each product runs on the rank's block with the collective its
+placement needs, and a placement the port does not run raises, naming the
+leaf. Logits come back whole over ``model`` for the rank's ``data`` slice.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as sh
+from repro_torch.models import parallel as tpm
+from repro_torch.dist.comm import GroupComm
 from repro_torch.models.config import InputShape, ModelConfig
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import (decode_step, forward, init_cache,
@@ -75,11 +82,13 @@ class NamedSharding:
 
 
 class _Mesh:
-    """A builder's mesh: its axis sizes, and this rank's device and data
-    coordinate (None for an abstract mesh)."""
+    """A builder's mesh: its axis sizes, and this rank's device, data
+    coordinate and ``model`` group (None for an abstract mesh, and the
+    group None when the axis has one rank)."""
 
     def __init__(self, mesh: Any):
         self.mesh, self.device, self.data_index = mesh, None, 0
+        self._tp: Optional[tpm.TP] = None
         if isinstance(mesh, Mapping):
             self.sizes = sh.axis_sizes(mesh)
         elif hasattr(mesh, "mesh_dim_names"):
@@ -96,12 +105,45 @@ class _Mesh:
             raise ValueError("an abstract mesh (axis sizes) gives shardings "
                              "only; build with a DeviceMesh or a device to "
                              "run the step")
-        if self.sizes.get("model", 1) > 1:
-            raise NotImplementedError(
-                "serving over a model axis larger than 1 (tensor "
-                "parallelism over DTensor) is not ported: ROADMAP.md A.13, "
-                "tensor-parallel serve")
         return self.device
+
+    @property
+    def tp(self) -> Optional[tpm.TP]:
+        """The ``model`` axis's :class:`tp.TP` (made on first use), or None
+        with one rank on it."""
+        if self.sizes.get("model", 1) > 1 and self._tp is None:
+            self._tp = tpm.TP(GroupComm(self.mesh.get_group("model"),
+                                        self.checked()))
+        return self._tp
+
+    def check_blocks(self, cfg: ModelConfig, params: Any, embed_mode: str
+                     ) -> None:
+        """Every parameter leaf is the rank's block of its placement: a
+        whole leaf where the spec splits it is refused (cut the trees with
+        :func:`local_shard`), and so is a stacked leaf split over its
+        layers, which the port does not run."""
+        if self.sizes.get("model", 1) == 1:
+            return
+        pshape = param_shapes(cfg)
+        specs = _serve_param_specs(pshape, self.sizes, embed_mode)
+
+        def walk(shapes, spec, got, path):
+            if isinstance(shapes, dict):
+                for k in shapes:
+                    walk(shapes[k], spec[k], got[k], f"{path}/{k}")
+                return
+            stacked = path.startswith("/seg")
+            if stacked and spec and spec[0] == "model":
+                raise tpm.refuse(f"{path[1:]} {tuple(shapes)} split over "
+                                 f"its stacked layers")
+            block = tuple(
+                n // self.sizes[ax] if ax == "model" else n
+                for n, ax in zip(shapes, spec + (None,) * len(shapes)))
+            if tuple(got.shape) != block:
+                raise ValueError(f"{path[1:]}: got {tuple(got.shape)}, this "
+                                 f"rank's block is {block}; cut the trees "
+                                 f"with serve.local_shard")
+        walk(pshape, specs, params, "")
 
     def batch_spec(self, shape) -> Optional[sh.Spec]:
         """``_batch_sharding``'s spec: the batch dim over ``data`` when it
@@ -164,13 +206,14 @@ def _shape_of(leaf) -> Optional[Tuple[int, ...]]:
 
 def local_shard(tree: Any, shardings: Any, mesh: Any) -> Any:
     """This rank's block of every leaf of a global ``tree`` (tensors), as
-    the matching ``shardings`` place it on the ``DeviceMesh`` ``mesh``."""
+    the matching ``shardings`` place it on the ``DeviceMesh`` ``mesh``: a
+    copy of its own, so the whole tree can be freed."""
     sizes, coords = sh.axis_sizes(mesh), sh.coordinates(mesh)
     if isinstance(tree, dict):
         return {k: local_shard(v, shardings[k], mesh)
                 for k, v in tree.items()}
     return tree[sh.local_index(shardings.spec, tuple(tree.shape), sizes,
-                               coords)]
+                               coords)].clone()
 
 
 def build_prefill(cfg: ModelConfig, mesh: Any = "cuda", *,
@@ -185,8 +228,9 @@ def build_prefill(cfg: ModelConfig, mesh: Any = "cuda", *,
 
     def prefill(params, tokens=None, embeds=None) -> torch.Tensor:
         tokens, embeds = m.inputs(tokens, embeds)
+        m.check_blocks(cfg, params, embed_mode)
         with torch.no_grad():
-            return forward(cfg, params, tokens, embeds=embeds)[0]
+            return forward(cfg, params, tokens, embeds=embeds, tp=m.tp)[0]
 
     def shardings(pshape, tok, emb):
         ps = _shardings(m, _serve_param_specs(pshape, m.sizes, embed_mode))
@@ -208,9 +252,10 @@ def build_decode(cfg: ModelConfig, mesh: Any = "cuda", *,
 
     def decode(params, cache, tokens=None, embeds=None, pos=0):
         tokens, embeds = m.inputs(tokens, embeds)
+        m.check_blocks(cfg, params, "vocab")
         with torch.no_grad():
             return decode_step(cfg, params, cache, tokens, pos,
-                               embeds=embeds)
+                               embeds=embeds, tp=m.tp)
 
     def shardings(pshape, cshape, tok, emb):
         ps = _shardings(m, _serve_param_specs(pshape, m.sizes, "vocab"))

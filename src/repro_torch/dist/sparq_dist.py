@@ -36,7 +36,9 @@ and each rank holds rows ``[r m, (r + 1) m)`` of every node-stacked buffer
 (``m = n / node``, ``r`` its node coordinate), replicated over ``fsdp``
 and ``model`` as the reference's ``P("node")`` rows are. Each rank runs the
 forward and backward of its rows on its fsdp slice of each per-node batch
-(the loss and gradients summed over the fsdp group), the local step, the
+(the f-th block of rows of each of the reference's microbatches; the loss
+and gradients summed over the fsdp group, and every MoE layer routing the
+group's whole microbatch as the reference does), the local step, the
 trigger norms, the compression of its rows and the x_hat update; the
 trigger vector, the fault masks and the repaired ``W_r``, the bits, the
 trigger count and the reported loss come from gathered ``(n,)`` vectors
@@ -390,19 +392,28 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
         ``grads``, summed over the fsdp group."""
         losses = torch.zeros((m,), dtype=torch.float32, device=dev)
         per = batch["tokens"].shape[1]
-        parts = fsdp_split(per, comm.fsdp)
-        f_lo = comm.fsdp_index * (per // parts) if parts > 1 else 0
-        per //= parts
         if per % mbs:
             raise ValueError(f"batch_per_node {per} is not a multiple of "
                              f"microbatches {mbs}")
-        mb = per // mbs
+        parts = fsdp_split(per, comm.fsdp)
+        whole = per // mbs                   # the reference's microbatch
+        if whole % parts:
+            raise ValueError(f"a microbatch of {whole} rows (batch_per_node "
+                             f"{per} / microbatches {mbs}) does not split "
+                             f"over fsdp {parts}")
+        # rank f holds the f-th block of each of the reference's
+        # microbatches, so the group's union of microbatch j is its
+        # microbatch j in its token order; the MoE layers route it as one
+        # over the group
+        mb = whole // parts
+        f_lo = comm.fsdp_index * mb if parts > 1 else 0
+        group = comm.fsdp_comm if parts > 1 else None
         for i in range(m):
             tree = grad_views(params[i], grads[i], slices, param_dt)
             for j in range(mbs):
-                sub = {k: v[i, f_lo + j * mb:f_lo + (j + 1) * mb]
-                       for k, v in batch.items()}
-                loss = lm_loss(cfg, tree, sub)[0]
+                lo_j = j * whole + f_lo
+                sub = {k: v[i, lo_j:lo_j + mb] for k, v in batch.items()}
+                loss = lm_loss(cfg, tree, sub, group)[0]
                 loss.backward()
                 losses[i] += loss.detach()
         if mbs > 1:

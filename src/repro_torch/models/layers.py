@@ -7,6 +7,11 @@ Initialization draws from the reference's threefry keys
 (:mod:`repro_torch.core.prng`): the same uniform bits, and values within a
 few ulps of the reference's (its ``erfinv`` is XLA's polynomial, rounded
 per operation here).
+
+Each layer takes an optional ``tp`` (:class:`repro_torch.models.parallel.TP`):
+with it the parameters are the rank's blocks over a serve mesh's ``model``
+axis, the activations stay whole, and every product goes through
+:mod:`repro_torch.models.parallel`; without it (one process) nothing changes.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.models import parallel as tpm
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -45,16 +51,19 @@ def dense_init(key: torch.Tensor, shape: Tuple[int, ...],
 # ---------------------------------------------------------------- norms
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, tp: Optional[tpm.TP] = None
+               ) -> torch.Tensor:
     xf = x.to(torch.float32)
+    d = x.shape[-1]
+    scale = tpm.whole(p["scale"], d, tp).to(torch.float32)
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, unbiased=False)
         y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+        y = y * scale + tpm.whole(p["bias"], d, tp).to(torch.float32)
     else:
         ms = (xf * xf).mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
+        y = xf * torch.rsqrt(ms + eps) * scale
     return y.to(x.dtype)
 
 
@@ -95,28 +104,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_pct: float,
 
 # ---------------------------------------------------------------- mlp
 
-def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor,
+              tp: Optional[tpm.TP] = None) -> torch.Tensor:
+    """With a ``tp`` whose ``w_in`` (and ``w_gate``) are split by output
+    columns, the hidden's column block is activated on its rank and
+    gathered once."""
     cd = dtype_of(cfg.compute_dtype)
     x = x.to(cd)
+    f, d = cfg.d_ff, x.shape[-1]
+    ins = [p[k] for k in ("w_gate", "w_in") if k in p]
+    local = tp is not None and all(tp.split(w.shape[-1], f, "mlp")
+                                   for w in ins)
+
+    def up(w):
+        w = w.to(cd)
+        return x @ w if local else tpm.matmul(x, w, f, tp)
     if cfg.act == "swiglu":
-        h = F.silu(x @ p["w_gate"].to(cd)) * (x @ p["w_in"].to(cd))
+        h = F.silu(up(p["w_gate"])) * up(p["w_in"])
     elif cfg.act == "relu2":
-        h = torch.square(F.relu(x @ p["w_in"].to(cd)))
+        h = torch.square(F.relu(up(p["w_in"])))
     else:
-        h = F.gelu(x @ p["w_in"].to(cd), approximate="tanh")
-    return h @ p["w_out"].to(cd)
+        h = F.gelu(up(p["w_in"]), approximate="tanh")
+    if local:
+        h = tp.gather(h, -1)
+    return tpm.matmul(h, p["w_out"].to(cd), d, tp)
 
 
 # ---------------------------------------------------------------- embeddings
 
-def embed_tokens(cfg: ModelConfig, p: Params, tokens: torch.Tensor
-                 ) -> torch.Tensor:
+def embed_tokens(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
+                 tp: Optional[tpm.TP] = None) -> torch.Tensor:
     # the whole table is cast before the gather, as in the reference, so the
     # backward accumulates repeated tokens in the compute dtype too
-    return p["embedding"].to(dtype_of(cfg.compute_dtype))[tokens]
+    table = p["embedding"].to(dtype_of(cfg.compute_dtype))
+    if tp is None:
+        return table[tokens]
+    return tp.embed(table, tokens, cfg.vocab_size, cfg.d_model)
 
 
-def lm_logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
+def lm_logits(cfg: ModelConfig, p: Params, h: torch.Tensor,
+              tp: Optional[tpm.TP] = None) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
     w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
-    return h @ w.to(cd)
+    return tpm.matmul(h, w.to(cd), cfg.vocab_size, tp)

@@ -23,12 +23,13 @@ Two orders that the reference leaves to XLA are fixed here:
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.models import parallel as tpm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
 
@@ -75,7 +76,8 @@ def capacity(cfg: ModelConfig, tokens: int) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor
+def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
+          group: Optional[tpm.Collectives] = None
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int,
                      torch.Tensor]:
     """x: (T, D) -> ``(token_for_slot, gate_for_slot, aux, cap, slot)``.
@@ -85,10 +87,21 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor
     ``E * sum_e f_e P_e``. Slots are filled in (token, choice) order; a
     choice past its expert's capacity is dropped. The first four are the
     reference's; ``slot``: (T, k) int64, the slot of each token's choices
-    (``E*C`` for a dropped one), the map that :func:`combine` reads."""
+    (``E*C`` for a dropped one), the map that :func:`combine` reads.
+
+    With ``group`` (the fsdp group of a node, each rank holding one
+    contiguous block of the node's tokens, in rank order) the tokens are
+    routed as the reference routes the whole batch: the capacity comes from
+    the group's token count; a choice's queue position is the choices of
+    its expert on the lower ranks plus its place among this rank's; ``f_e``
+    and ``P_e`` are the group's. This rank's tables hold its own tokens at
+    their global slots: the rank's rows of the reference's table. Only a
+    ``(ranks, E + 1)`` integer gather and an ``(E,)`` sum cross the ranks.
+    ``aux`` is the group's value; its gradient flows through this rank's
+    probabilities, ``group.size`` times their share, so that the mean of
+    the ranks' gradients (the engine's fsdp mean) is the group's."""
     t_count = x.shape[0]
     e, k = cfg.n_experts, cfg.moe_top_k
-    cap = capacity(cfg, t_count)
     dev = x.device
     logits = x.to(torch.float32) @ router_w.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                          # (T, E)
@@ -97,14 +110,30 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor
     # renormalized over the selected set
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
+    flat_expert = expert_idx.reshape(-1)                           # (T*k,)
+    choices = F.one_hot(flat_expert, e)                            # (T*k, E)
 
     # load-balance aux (switch): E * sum_e f_e * P_e
-    onehot = F.one_hot(expert_idx, e).to(torch.float32).sum(1)     # (T, E)
-    aux = e * torch.sum(onehot.mean(0) * probs.mean(0))
+    if group is None:
+        cap = capacity(cfg, t_count)
+        before = 0
+        onehot = F.one_hot(expert_idx, e).to(torch.float32).sum(1)  # (T, E)
+        aux = e * torch.sum(onehot.mean(0) * probs.mean(0))
+    else:
+        counts = torch.cat([choices.sum(0),
+                            choices.new_tensor([t_count])])        # (E + 1,)
+        every = group.all_gather(counts[None], 0)           # (ranks, E + 1)
+        t_all = int(every[:, e].sum())
+        cap = capacity(cfg, t_all)
+        before = every[:group.rank, :e].sum(0)                     # (E,)
+        f_e = every[:, :e].sum(0).to(torch.float32) / t_all
+        p_own = probs.sum(0)
+        p_all = group.all_reduce(p_own.detach())
+        p_e = (p_all + group.size * (p_own - p_own.detach())) / t_all
+        aux = e * torch.sum(f_e * p_e)
 
     # position of each (token, choice) within its expert's queue
-    flat_expert = expert_idx.reshape(-1)                           # (T*k,)
-    pos = torch.cumsum(F.one_hot(flat_expert, e), dim=0) - 1       # (T*k, E)
+    pos = torch.cumsum(choices, dim=0) - 1 + before                # (T*k, E)
     pos_in_e = torch.gather(pos, 1, flat_expert[:, None])[:, 0]
     # a choice past its expert's capacity goes to the overflow bin e * cap
     slot = torch.where(pos_in_e < cap, flat_expert * cap + pos_in_e, e * cap)
@@ -150,63 +179,110 @@ def flipped_tokens(a, b, t_count: int) -> List[int]:
 
 def _routed(cfg: ModelConfig, p: Params, xt: torch.Tensor,
             token_for_slot: torch.Tensor, gate_for_slot: torch.Tensor,
-            cap: int, slot: torch.Tensor) -> torch.Tensor:
+            cap: int, slot: torch.Tensor,
+            tp: Optional[tpm.TP] = None) -> torch.Tensor:
     """The routed experts on one routing group: gather (E, C, D) through
-    the sentinel row, SwiGLU experts, gate-weighted combine. xt: (T, D)."""
+    the sentinel row, SwiGLU experts, gate-weighted combine. xt: (T, D).
+
+    With a ``tp`` whose expert leaves hold the rank's experts (expert
+    parallelism), the rank runs its experts' slots from the routing every
+    rank computed alike, combines its own slots in slot order, and an
+    all-reduce sums the ranks' combines."""
     cd = dtype_of(cfg.compute_dtype)
     d = xt.shape[1]
-    e = cfg.n_experts
+    e, f = cfg.n_experts, cfg.moe_d_ff
+    lo, hi = 0, e
+    if tp is not None:
+        for name, rest in (("w_gate", (d, f)), ("w_in", (d, f)),
+                           ("w_out", (f, d))):
+            if tuple(p[name].shape[1:]) != rest:
+                raise tpm.refuse(f"moe/{name} with model off its expert "
+                                 f"dimension (block {tuple(p[name].shape)})")
+        if tp.split(p["w_gate"].shape[0], e, "moe experts"):
+            lo, hi = tp.block(e)
     xt_pad = torch.cat([xt, xt.new_zeros((1, d))])                 # sentinel
-    xe = xt_pad[token_for_slot.to(torch.int64)].reshape(e, cap, d)
+    tfs = token_for_slot.to(torch.int64)[lo * cap:hi * cap]
+    xe = xt_pad[tfs].reshape(hi - lo, cap, d)
     h = (F.silu(torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(cd)))
          * torch.einsum("ecd,edf->ecf", xe, p["w_in"].to(cd)))
     ye = torch.einsum("ecf,efd->ecd", h, p["w_out"].to(cd))
-    ye = ye.reshape(e * cap, d) * gate_for_slot[:, None].to(cd)
-    return combine(ye, slot)
+    ye = ye.reshape((hi - lo) * cap, d) * \
+        gate_for_slot[lo * cap:hi * cap, None].to(cd)
+    if (lo, hi) == (0, e):
+        return combine(ye, slot)
+    # the rank's slots; every other slot reads the zero row, added last
+    own = (slot >= lo * cap) & (slot < hi * cap)
+    local = torch.where(own, slot - lo * cap, (hi - lo) * cap)
+    return tp.reduce(combine(ye, local))
 
 
-def _shared(cfg: ModelConfig, p: Params, xt: torch.Tensor) -> torch.Tensor:
+def _shared(cfg: ModelConfig, p: Params, xt: torch.Tensor,
+            tp: Optional[tpm.TP] = None) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
-    hs = (F.silu(xt @ p["shared_gate"].to(cd))
-          * (xt @ p["shared_in"].to(cd)))
-    return hs @ p["shared_out"].to(cd)
+    fs, d = cfg.moe_d_ff * cfg.n_shared_experts, xt.shape[-1]
+    hs = (F.silu(tpm.matmul(xt, p["shared_gate"].to(cd), fs, tp))
+          * tpm.matmul(xt, p["shared_in"].to(cd), fs, tp))
+    return tpm.matmul(hs, p["shared_out"].to(cd), d, tp)
 
 
-def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor
+def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                group: Optional[tpm.Collectives] = None,
+                tp: Optional[tpm.TP] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux). With ``moe_route_blocks > 1`` the tokens
-    are routed in that many independent groups (``_moe_forward_blocked``)."""
+    are routed in that many independent groups (``_moe_forward_blocked``).
+    ``group``: the fsdp group whose ranks hold the rest of the batch, which
+    is routed as one (:func:`route`); ``tp``: the serve mesh's ``model``
+    axis (expert parallelism, :func:`_routed`)."""
     if cfg.moe_route_blocks > 1:
-        return _moe_forward_blocked(cfg, p, x)
+        return _moe_forward_blocked(cfg, p, x, group, tp)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    token_for_slot, gate_for_slot, aux, cap, slot = route(cfg, p["router"],
-                                                          xt)
-    y = _routed(cfg, p, xt, token_for_slot, gate_for_slot, cap, slot)
+    router = tpm.whole(p["router"], d, tp, dim=0)
+    token_for_slot, gate_for_slot, aux, cap, slot = route(cfg, router, xt,
+                                                          group=group)
+    y = _routed(cfg, p, xt, token_for_slot, gate_for_slot, cap, slot, tp)
     if cfg.n_shared_experts:
-        y = y + _shared(cfg, p, xt)
+        y = y + _shared(cfg, p, xt, tp)
     return y.reshape(b, s, d), aux.to(torch.float32)
 
 
-def _moe_forward_blocked(cfg: ModelConfig, p: Params, x: torch.Tensor
+def _moe_forward_blocked(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                         group: Optional[tpm.Collectives] = None,
+                         tp: Optional[tpm.TP] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blocked routing (``moe.py:124``): the tokens split into
     ``moe_route_blocks`` groups, each routed on its own with the capacity of
-    its own token count; the aux is the groups' mean."""
+    its own token count; the aux is the groups' mean. With ``group``, whose
+    ranks hold equal contiguous blocks of the batch, each rank routes its
+    own route blocks (their count must divide by the group's size); the
+    aux's value is the mean over all blocks and its gradient the rank's
+    blocks' mean, so that the mean of the ranks' gradients is the
+    group's."""
     b, s, d = x.shape
     nb = cfg.moe_route_blocks
     if (b * s) % nb:
         raise ValueError(f"{b * s} tokens do not split into {nb} route "
                          f"blocks")
+    if group is not None:
+        if nb % group.size:
+            raise ValueError(f"{nb} route blocks do not split over the "
+                             f"{group.size} ranks of the fsdp group")
+        nb //= group.size
     xt = x.reshape(b * s, d)
+    router = tpm.whole(p["router"], d, tp, dim=0)
     ys, auxs = [], []
     for xb in xt.reshape(nb, b * s // nb, d):
-        token_for_slot, gate_for_slot, aux, cap, slot = route(
-            cfg, p["router"], xb)
+        token_for_slot, gate_for_slot, aux, cap, slot = route(cfg, router,
+                                                              xb)
         ys.append(_routed(cfg, p, xb, token_for_slot, gate_for_slot, cap,
-                          slot))
+                          slot, tp))
         auxs.append(aux)
     y = torch.cat(ys)
     if cfg.n_shared_experts:
-        y = y + _shared(cfg, p, xt)
-    return y.reshape(b, s, d), torch.stack(auxs).mean().to(torch.float32)
+        y = y + _shared(cfg, p, xt, tp)
+    aux = torch.stack(auxs).mean()
+    if group is not None:
+        aux = aux + (group.all_reduce(aux.detach()) / group.size
+                     - aux.detach())
+    return y.reshape(b, s, d), aux.to(torch.float32)

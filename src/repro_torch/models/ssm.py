@@ -14,6 +14,15 @@ so no kernel of the port is involved.
 Decode is the one-token recurrence (``init_ssm_cache``, ``ssm_decode``):
 the state (B, H, P, N) in float32 and the conv's last K-1 inputs in the
 compute dtype; the cache does not grow with the context.
+
+With a ``tp`` (:mod:`repro_torch.models.parallel`) the leaves are the rank's
+blocks over a serve mesh's ``model`` axis. ``w_in`` is one fused leaf whose
+column blocks cut across the z, x, B, C and dt segments, so its product is
+gathered before :func:`_split_proj`. Where the per-head leaves (``a_log``,
+``dt_bias``, ``d_skip``) and the state split by heads, each rank runs the
+scan or the recurrence of its heads and the head outputs are gathered
+before the gated norm; the conv runs on the rank's channel block where its
+window is split so, and is gathered after.
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.device import resolve_or_meta
+from repro_torch.models import parallel as tpm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, rms_norm_vec
 
@@ -193,20 +204,41 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return (y_diag + y_off).reshape(bb, L, h, p), final_state
 
 
+def _heads_split(cfg: ModelConfig, p: Params, tp: Optional[tpm.TP]
+                 ) -> bool:
+    """Whether the per-head leaves hold the rank's heads."""
+    h = cfg.ssm_heads
+    return tp is not None and all(tp.split(p[k].shape[-1], h, f"ssm/{k}")
+                                  for k in ("a_log", "dt_bias", "d_skip"))
+
+
 def ssm_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                tp: Optional[tpm.TP] = None) -> torch.Tensor:
     """Train/prefill. x: (B, L, D) in the compute dtype -> (B, L, D).
     ``positions`` is unused, as in the reference."""
     cd = dtype_of(cfg.compute_dtype)
     f32 = torch.float32
-    bsz, L, _ = x.shape
+    bsz, L, d = x.shape
     d_in, h, p_dim, g, n = _dims(cfg)
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["w_in"].to(cd))
-    xbc = _causal_conv(xbc, p["conv_w"].to(cd), p["conv_b"].to(cd))
+    n_proj = 2 * d_in + 2 * g * n + h
+    z, xbc, dt_raw = _split_proj(cfg, tpm.matmul(x, p["w_in"].to(cd),
+                                                 n_proj, tp))
+    c_all = conv_channels(cfg)
+    xbc = _causal_conv(xbc, tpm.whole(p["conv_w"], c_all, tp).to(cd),
+                       tpm.whole(p["conv_b"], c_all, tp).to(cd))
     xs, b, c = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
     xs = xs.reshape(bsz, L, h, p_dim)
     b = b.reshape(bsz, L, g, n)
     c = c.reshape(bsz, L, g, n)
+    local = _heads_split(cfg, p, tp)
+    if local:
+        # the rank's heads: their x and dt, and their groups' B and C rows
+        # (each group's row repeated for its heads, group-major)
+        lo, hi = tp.block(h)
+        xs, dt_raw = xs[:, :, lo:hi], dt_raw[..., lo:hi]
+        b, c = (t.repeat_interleave(h // g, dim=2)[:, :, lo:hi]
+                for t in (b, c))
     # jax.nn.softplus is logaddexp(x, 0)
     u = dt_raw.to(f32) + p["dt_bias"].to(f32)
     dt = torch.logaddexp(u, torch.zeros((), dtype=f32, device=u.device))
@@ -217,18 +249,23 @@ def ssm_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y, _ = ssd_chunked(xs * dt[..., None], dt * a_neg[None, None, :], b, c,
                        chunk)
     y = y + xs.to(f32) * p["d_skip"].to(f32)[None, None, :, None]
-    y = y.reshape(bsz, L, d_in).to(cd)
-    y = rms_norm_vec(y * F.silu(z)) * p["norm_scale"].to(cd)
-    return y @ p["w_out"].to(cd)
+    y = y.reshape(bsz, L, -1).to(cd)
+    if local:
+        y = tp.gather(y, -1)
+    y = rms_norm_vec(y * F.silu(z)) * tpm.whole(p["norm_scale"], d_in,
+                                                tp).to(cd)
+    return tpm.matmul(y, p["w_out"].to(cd), d, tp)
 
 
 # ------------------------------------------------------------------ decode
 
 def init_ssm_cache(cfg: ModelConfig, batch: int,
                    n_layers: Optional[int] = None,
-                   device: torch.device | str = "cpu") -> Params:
+                   device: torch.device | str | None = "cuda") -> Params:
     """``state``: (L, B, H, P, N) float32; ``conv``: (L, B, K-1, C) in the
-    compute dtype; both zero."""
+    compute dtype; both zero; on the card unless ``device`` names
+    another."""
+    device = resolve_or_meta(device)
     _, h, p_dim, _, n = _dims(cfg)
     L = cfg.n_layers if n_layers is None else n_layers
     cd = dtype_of(cfg.compute_dtype)
@@ -241,37 +278,82 @@ def init_ssm_cache(cfg: ModelConfig, batch: int,
 
 
 def ssm_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               state: torch.Tensor, conv_buf: torch.Tensor
+               state: torch.Tensor, conv_buf: torch.Tensor,
+               tp: Optional[tpm.TP] = None
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One-token recurrent update. x: (B, 1, D); state: (B, H, P, N);
     conv_buf: (B, K-1, C). Returns the output (B, 1, D) and the new state
     and conv window (new tensors; the caller stores them). The conv's
     product over the K-window, which the reference takes in the compute
-    dtype, is taken in float32 and rounded once."""
+    dtype, is taken in float32 and rounded once. With a ``tp``, ``state``
+    is the rank's block of its heads or of its head dim P (the recurrence
+    runs per head and per P row alike) and ``conv_buf`` the rank's block of
+    its channels or the whole window."""
     cd = dtype_of(cfg.compute_dtype)
     f32 = torch.float32
     d_in, h, p_dim, g, n = _dims(cfg)
-    bsz = x.shape[0]
-    z, xbc, dt_raw = _split_proj(cfg, x[:, 0] @ p["w_in"].to(cd))
-    window = torch.cat([conv_buf, xbc[:, None, :]], dim=1)       # (B,K,C)
+    bsz, d = x.shape[0], x.shape[-1]
+    c_all = conv_channels(cfg)
+    split, conv_split = None, False
+    if tp is not None:
+        for dim, (got, w) in enumerate(zip(state.shape[1:], (h, p_dim, n),
+                                           strict=True)):
+            if tp.split(got, w, "ssm state"):
+                split = dim
+        if split == 2:
+            raise tpm.refuse(f"ssm state with model on its state dim "
+                             f"(whole {n})")
+        if tp.split(conv_buf.shape[1], cfg.ssm_conv - 1, "ssm conv window"):
+            raise tpm.refuse(f"ssm conv window with model on its "
+                             f"{cfg.ssm_conv - 1} steps")
+        conv_split = tp.split(conv_buf.shape[-1], c_all, "ssm conv window")
+    n_proj = 2 * d_in + 2 * g * n + h
+    z, xbc, dt_raw = _split_proj(cfg, tpm.matmul(x[:, 0], p["w_in"].to(cd),
+                                                 n_proj, tp))
+    if conv_split:
+        # the rank's channels of the window, convolved, then gathered
+        window = torch.cat([conv_buf, xbc[:, None, slice(*tp.block(c_all))]],
+                           dim=1)
+        conv_w, conv_b = p["conv_w"], p["conv_b"]
+    else:
+        window = torch.cat([conv_buf, xbc[:, None, :]], dim=1)   # (B,K,C)
+        conv_w = tpm.whole(p["conv_w"], c_all, tp)
+        conv_b = tpm.whole(p["conv_b"], c_all, tp)
     conv_out = torch.einsum("bkc,kc->bc", window.to(f32),
-                            p["conv_w"].to(cd).to(f32)).to(cd)
-    xbc = F.silu(conv_out + p["conv_b"].to(cd))
+                            conv_w.to(cd).to(f32)).to(cd)
+    xbc = F.silu(conv_out + conv_b.to(cd))
+    if conv_split:
+        xbc = tp.gather(xbc, -1)
     new_conv = window[:, 1:]
     xs, b, c = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
-    xs = xs.reshape(bsz, h, p_dim).to(f32)
+    # the state's heads and P rows this rank runs
+    if split == 0 and not _heads_split(cfg, p, tp):
+        raise tpm.refuse("an ssm state split by heads with a_log, dt_bias "
+                         "and d_skip whole")
+    hs = slice(*tp.block(h)) if split == 0 else slice(None)
+    ps = slice(*tp.block(p_dim)) if split == 1 else slice(None)
+
+    def per_head(name):
+        leaf = p[name].to(f32)
+        return leaf if split == 0 else tpm.whole(leaf, h, tp)
+    xs = xs.reshape(bsz, h, p_dim)[:, hs, ps].to(f32)
     # "b (g n) -> b (g r) n": each group's row repeated for its r heads
-    b = b.reshape(bsz, g, n).repeat_interleave(h // g, dim=1).to(f32)
-    c = c.reshape(bsz, g, n).repeat_interleave(h // g, dim=1).to(f32)
-    u = dt_raw.to(f32) + p["dt_bias"].to(f32)
+    b = b.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)[:, hs] \
+        .to(f32)
+    c = c.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)[:, hs] \
+        .to(f32)
+    u = dt_raw[:, hs].to(f32) + per_head("dt_bias")
     dt = torch.logaddexp(u, torch.zeros((), dtype=f32, device=u.device))
-    a_neg = -torch.exp(p["a_log"].to(f32))
+    a_neg = -torch.exp(per_head("a_log"))
     decay = torch.exp(dt * a_neg[None, :])                       # (B,H)
     new_state = (state * decay[..., None, None]
                  + torch.einsum("bh,bhp,bhn->bhpn", dt, xs, b))
     y = torch.einsum("bhpn,bhn->bhp", new_state, c)
-    y = y + xs * p["d_skip"].to(f32)[None, :, None]
+    y = y + xs * per_head("d_skip")[None, :, None]
+    if split is not None:
+        y = tp.gather(y, 1 + split)
     y = y.reshape(bsz, d_in).to(cd)
-    y = rms_norm_vec(y * F.silu(z)) * p["norm_scale"].to(cd)
-    out = (y @ p["w_out"].to(cd))[:, None, :]
+    y = rms_norm_vec(y * F.silu(z)) * tpm.whole(p["norm_scale"], d_in,
+                                                tp).to(cd)
+    out = tpm.matmul(y, p["w_out"].to(cd), d, tp)[:, None, :]
     return out, (new_state, new_conv)

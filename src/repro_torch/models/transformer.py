@@ -30,6 +30,13 @@ the whole stack against a cache: per-layer KV or MLA slices across the
 segments, the SSM stack's state and conv window, and the hybrid's shared
 block with one KV cache per use. The reference's ``lax.scan`` and
 ``lax.cond`` are a Python loop here; the cache is written in place.
+
+Two optional arguments carry a mesh into the model. ``group`` (training,
+:func:`lm_loss`): the fsdp group whose ranks hold the rest of a node's
+(micro)batch, over which every MoE layer routes (:func:`moe.route`).
+``tp`` (serving, :func:`forward` and :func:`decode_step`): the ``model``
+axis of a serve mesh, the parameters and the cache the rank's blocks
+(:mod:`repro_torch.models.parallel`).
 """
 from __future__ import annotations
 
@@ -41,8 +48,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
+from repro_torch.device import resolve_or_meta
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
+from repro_torch.models import parallel as tpm
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
@@ -275,43 +284,49 @@ def _layer(tree: Params, i: int) -> Params:
 
 
 def _attention(cfg: ModelConfig, p: Params, h: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, tp: Optional[tpm.TP] = None
+               ) -> torch.Tensor:
     if cfg.use_mla:
-        return attn.mla_forward(cfg, p, h, positions)
-    return attn.attention_forward(cfg, p, h, positions)
+        return attn.mla_forward(cfg, p, h, positions, tp)
+    return attn.attention_forward(cfg, p, h, positions, tp)
 
 
 def _dense_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(cfg, bp["norm1"], x)
-    x = x + _attention(cfg, bp["attn"], h, positions)
-    h2 = apply_norm(cfg, bp["norm2"], x)
-    return x + apply_mlp(cfg, bp["mlp"], h2)
+                 positions: torch.Tensor, tp: Optional[tpm.TP] = None
+                 ) -> torch.Tensor:
+    h = apply_norm(cfg, bp["norm1"], x, tp=tp)
+    x = x + _attention(cfg, bp["attn"], h, positions, tp)
+    h2 = apply_norm(cfg, bp["norm2"], x, tp=tp)
+    return x + apply_mlp(cfg, bp["mlp"], h2, tp)
 
 
 def _moe_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
-               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    h = apply_norm(cfg, bp["norm1"], x)
-    x = x + _attention(cfg, bp["attn"], h, positions)
-    h2 = apply_norm(cfg, bp["norm2"], x)
-    y, aux = moe.moe_forward(cfg, bp["moe"], h2)
+               positions: torch.Tensor, group: Optional[tpm.Collectives] = None,
+               tp: Optional[tpm.TP] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = apply_norm(cfg, bp["norm1"], x, tp=tp)
+    x = x + _attention(cfg, bp["attn"], h, positions, tp)
+    h2 = apply_norm(cfg, bp["norm2"], x, tp=tp)
+    y, aux = moe.moe_forward(cfg, bp["moe"], h2, group, tp)
     return x + y, aux
 
 
 def _ssm_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
-    h = apply_norm(cfg, bp["norm"], x)
-    return x + ssm.ssm_forward(cfg, bp["ssm"], h, positions)
+               positions: torch.Tensor, tp: Optional[tpm.TP] = None
+               ) -> torch.Tensor:
+    h = apply_norm(cfg, bp["norm"], x, tp=tp)
+    return x + ssm.ssm_forward(cfg, bp["ssm"], h, positions, tp)
 
 
 def _hybrid_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
-                  positions: torch.Tensor, shared: Optional[Params]
-                  ) -> torch.Tensor:
+                  positions: torch.Tensor, shared: Optional[Params],
+                  tp: Optional[tpm.TP] = None) -> torch.Tensor:
     """One hybrid layer: the SSM block, then the shared attention block
     (norm1, attention, norm2, MLP: a dense block's tree) when ``shared`` is
     given."""
-    x = _ssm_block(cfg, bp, x, positions)
-    return x if shared is None else _dense_block(cfg, shared, x, positions)
+    x = _ssm_block(cfg, bp, x, positions, tp)
+    return x if shared is None else _dense_block(cfg, shared, x, positions,
+                                                 tp)
 
 
 def _stack_layers(seg: Any, n: int) -> List[Params]:
@@ -326,16 +341,18 @@ def _stack_layers(seg: Any, n: int) -> List[Params]:
 
 def forward_hidden(cfg: ModelConfig, params: Params,
                    tokens: Optional[torch.Tensor] = None,
-                   embeds: Optional[torch.Tensor] = None
+                   embeds: Optional[torch.Tensor] = None,
+                   group: Optional[tpm.Collectives] = None,
+                   tp: Optional[tpm.TP] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward. tokens: (B, S) int, or ``embeds`` (B, S, D)
     precomputed frontend embeddings (the audio and VLM configs' stub) ->
     (final-normed hidden (B, S, D) in the compute dtype, the MoE layers'
-    summed aux loss, float32)."""
+    summed aux loss, float32). ``group`` and ``tp``: see the module doc."""
     if embeds is not None:
         x = embeds.to(dtype_of(cfg.compute_dtype))
     else:
-        x = embed_tokens(cfg, params["embed"], tokens)
+        x = embed_tokens(cfg, params["embed"], tokens, tp)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (kind, n) in enumerate(segments(cfg)):
@@ -345,16 +362,25 @@ def forward_hidden(cfg: ModelConfig, params: Params,
         auxs = []
         for li, bp in enumerate(blocks):
             args = (cfg, bp, x, positions)
-            if kind == "hybrid":
+            if kind == "moe":
+                args += (group,)
+            elif kind == "hybrid":
                 # the shared block after every attn_every-th layer, inside
                 # the layer's checkpointed body as in the reference's scan
                 every = cfg.attn_every
                 args += (params["shared_attn"] if li % every == every - 1
                          else None,)
             if cfg.remat:
-                out = checkpoint(block, *args, use_reentrant=False)
+                # with a group, a MoE block's recomputation issues its
+                # routing collectives again; every rank of the group runs
+                # the same graph (the same layers, the same microbatch
+                # shapes), and autograd recomputes its checkpointed blocks
+                # in one order (the reverse of the forward's), so the
+                # ranks meet in each recomputed collective in the same
+                # order and none waits on a block its peers do not redo
+                out = checkpoint(block, *args, use_reentrant=False, tp=tp)
             else:
-                out = block(*args)
+                out = block(*args, tp=tp)
             if kind == "moe":
                 x, aux = out
                 auxs.append(aux)
@@ -362,16 +388,17 @@ def forward_hidden(cfg: ModelConfig, params: Params,
                 x = out
         if auxs:
             aux_total = aux_total + torch.stack(auxs).sum()
-    return apply_norm(cfg, params["final_norm"], x), aux_total
+    return apply_norm(cfg, params["final_norm"], x, tp=tp), aux_total
 
 
 def forward(cfg: ModelConfig, params: Params,
             tokens: Optional[torch.Tensor] = None,
-            embeds: Optional[torch.Tensor] = None
+            embeds: Optional[torch.Tensor] = None,
+            tp: Optional[tpm.TP] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward with the LM head: -> (logits (B, S, V), aux)."""
-    h, aux = forward_hidden(cfg, params, tokens, embeds=embeds)
-    return lm_logits(cfg, params["embed"], h), aux
+    h, aux = forward_hidden(cfg, params, tokens, embeds=embeds, tp=tp)
+    return lm_logits(cfg, params["embed"], h, tp), aux
 
 
 def mtp_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -413,15 +440,19 @@ def chunked_ce(cfg: ModelConfig, embed_params: Params, h: torch.Tensor,
     return total / (b * nc * chunk)
 
 
-def lm_loss(cfg: ModelConfig, params: Params, batch: Mapping[str, Any]
+def lm_loss(cfg: ModelConfig, params: Params, batch: Mapping[str, Any],
+            group: Optional[tpm.Collectives] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE, plus ``router_aux_coef * aux`` for a MoE config and
     ``mtp_coef`` times the MTP head's CE on ``labels[:, 2:]`` with
     ``use_mtp``. batch: tokens (B, S) or embeds (B, S, D), and labels
-    (B, S)."""
+    (B, S). With ``group`` (an fsdp group, each rank holding one block of
+    the batch's rows) the MoE layers route the group's whole batch and
+    ``aux`` is the group's: the CE is this rank's, so the group's mean of
+    the losses and of their gradients is the whole batch's."""
     tokens, labels = batch.get("tokens"), batch["labels"]
     hidden, aux = forward_hidden(cfg, params, tokens,
-                                 embeds=batch.get("embeds"))
+                                 embeds=batch.get("embeds"), group=group)
     loss = chunked_ce(cfg, params["embed"], hidden, labels)
     metrics = {"ce": loss, "aux": aux}
     if cfg.n_experts:
@@ -438,13 +469,15 @@ def lm_loss(cfg: ModelConfig, params: Params, batch: Mapping[str, Any]
 # ------------------------------------------------------------------ decode
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: torch.device | str = "cpu") -> Params:
+               device: torch.device | str | None = "cuda") -> Params:
     """The decode cache, the reference's tree: ``cache_len`` is the full
     context under full attention, the window under a sliding window. The SSM
     stack holds ``ssm`` {state, conv}; the hybrid adds ``attn``, one KV
     cache per use of its shared block; MLA holds ``mla`` {ckv, kr, pos},
-    every other config ``kv`` {k, v, pos}. ``device="meta"`` gives the
-    shapes and dtypes without memory."""
+    every other config ``kv`` {k, v, pos}. On the card unless ``device``
+    names another; ``device="meta"`` gives the shapes and dtypes without
+    memory."""
+    device = resolve_or_meta(device)
     if cfg.family == "ssm":
         return {"ssm": ssm.init_ssm_cache(cfg, batch, device=device)}
     if cfg.family == "hybrid":
@@ -459,28 +492,30 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def _decode_attn_block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
-                       kv: Params, pos: int) -> torch.Tensor:
+                       kv: Params, pos: int, tp: Optional[tpm.TP] = None
+                       ) -> torch.Tensor:
     """norm1, cached attention on one layer's cache slice ``kv`` (written
     in place), norm2, then the MLP or the MoE."""
-    h = apply_norm(cfg, bp["norm1"], x)
+    h = apply_norm(cfg, bp["norm1"], x, tp=tp)
     if cfg.use_mla:
         o, _ = attn.mla_decode(cfg, bp["attn"], h, kv["ckv"], kv["kr"],
-                               kv["pos"], pos)
+                               kv["pos"], pos, tp)
     else:
         o, _ = attn.decode_attention(cfg, bp["attn"], h, kv["k"], kv["v"],
-                                     kv["pos"], pos)
+                                     kv["pos"], pos, tp)
     x = x + o
-    h2 = apply_norm(cfg, bp["norm2"], x)
+    h2 = apply_norm(cfg, bp["norm2"], x, tp=tp)
     if "moe" in bp:
-        return x + moe.moe_forward(cfg, bp["moe"], h2)[0]
-    return x + apply_mlp(cfg, bp["mlp"], h2)
+        return x + moe.moe_forward(cfg, bp["moe"], h2, tp=tp)[0]
+    return x + apply_mlp(cfg, bp["mlp"], h2, tp)
 
 
 def _ssm_decode_layer(cfg: ModelConfig, bp: Params, x: torch.Tensor,
-                      sc: Params, li: int) -> torch.Tensor:
-    hh = apply_norm(cfg, bp["norm"], x)
+                      sc: Params, li: int, tp: Optional[tpm.TP] = None
+                      ) -> torch.Tensor:
+    hh = apply_norm(cfg, bp["norm"], x, tp=tp)
     o, (st, cv) = ssm.ssm_decode(cfg, bp["ssm"], hh, sc["state"][li],
-                                 sc["conv"][li])
+                                 sc["conv"][li], tp)
     sc["state"][li].copy_(st)
     sc["conv"][li].copy_(cv)
     return x + o
@@ -488,28 +523,30 @@ def _ssm_decode_layer(cfg: ModelConfig, bp: Params, x: torch.Tensor,
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                 tokens: Optional[torch.Tensor], pos: int,
-                embeds: Optional[torch.Tensor] = None
+                embeds: Optional[torch.Tensor] = None,
+                tp: Optional[tpm.TP] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step for the whole stack. tokens: (B, 1), or ``embeds``
     (B, 1, D) for the audio and VLM configs; pos: the token's absolute
     position. Returns (logits (B, 1, V), ``cache``), its tensors written in
-    place: they now hold the reference's new cache."""
+    place: they now hold the reference's new cache. With ``tp`` the
+    parameters and the cache are the rank's blocks."""
     pos = int(pos)
     if embeds is not None:
         x = embeds.to(dtype_of(cfg.compute_dtype))
     else:
-        x = embed_tokens(cfg, params["embed"], tokens)
+        x = embed_tokens(cfg, params["embed"], tokens, tp)
     if cfg.family in ("ssm", "hybrid"):
         sc = cache["ssm"]
         every = cfg.attn_every
         for li, bp in enumerate(_stack_layers(params["seg0"],
                                               cfg.n_layers)):
-            x = _ssm_decode_layer(cfg, bp, x, sc, li)
+            x = _ssm_decode_layer(cfg, bp, x, sc, li, tp)
             if cfg.family == "hybrid" and li % every == every - 1:
                 app = li // every
                 kv = {k: v[app] for k, v in cache["attn"].items()}
                 x = _decode_attn_block(cfg, params["shared_attn"], x, kv,
-                                       pos)
+                                       pos, tp)
     else:
         # dense and MoE: the segments' layers in order, each on its slice
         # of the one stacked cache
@@ -518,7 +555,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         for si, (_, n) in enumerate(segments(cfg)):
             for bp in _stack_layers(params[f"seg{si}"], n):
                 kv = {k: v[li] for k, v in cc.items()}
-                x = _decode_attn_block(cfg, bp, x, kv, pos)
+                x = _decode_attn_block(cfg, bp, x, kv, pos, tp)
                 li += 1
-    x = apply_norm(cfg, params["final_norm"], x)
-    return lm_logits(cfg, params["embed"], x), cache
+    x = apply_norm(cfg, params["final_norm"], x, tp=tp)
+    return lm_logits(cfg, params["embed"], x, tp), cache

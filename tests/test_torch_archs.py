@@ -277,8 +277,8 @@ def test_loss_and_grads_tight_with_float32_scores(float32_scores, arch,
     tables = []
     real = tmoe.route
 
-    def route(cfg, w, x):
-        out = real(cfg, w, x)
+    def route(cfg, w, x, group=None):
+        out = real(cfg, w, x, group)
         tables.append(out[0].clone())
         return out
     monkeypatch.setattr(tmoe, "route", route)
@@ -329,8 +329,8 @@ def test_remat_changes_nothing_for_a_moe_block(monkeypatch):
     tables = []
     real = tmoe.route
 
-    def route(cfg, w, x):
-        out = real(cfg, w, x)
+    def route(cfg, w, x, group=None):
+        out = real(cfg, w, x, group)
         tables.append(out[0].clone())
         return out
     monkeypatch.setattr(tmoe, "route", route)

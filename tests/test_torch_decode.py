@@ -97,7 +97,8 @@ def _run(cfg, seed=1):
     with torch.no_grad():
         full, _ = ttf.forward(cfg, params, toks, embeds=emb)
         cache = ttf.init_cache(cfg, 2, S if cfg.sliding_window is None
-                               else min(cfg.sliding_window, S))
+                               else min(cfg.sliding_window, S),
+                               device="cpu")
         errs = []
         for t in range(S):
             e_t = emb[:, t:t + 1] if emb is not None else None
@@ -131,7 +132,7 @@ def test_swa_ring_buffer_reuses_slots():
     """With window < S the cache physically holds only ``window`` slots."""
     cfg = get_config("stablelm-1.6b").reduced()
     cfg = dataclasses.replace(cfg, sliding_window=8)
-    cache = ttf.init_cache(cfg, 2, 8)
+    cache = ttf.init_cache(cfg, 2, 8, device="cpu")
     assert cache["kv"]["k"].shape[2] == 8
     params = ttf.init_params(cfg, prng.PRNGKey(0))
     toks = torch.tensor(np.random.default_rng(1).integers(
@@ -157,7 +158,7 @@ def test_ssm_decode_matches_forward_per_block():
         (2, 8, cfg.d_model)) * 0.5, dtype=torch.float32)
     with torch.no_grad():
         y_full = tssm.ssm_forward(cfg, p, x.to(torch.bfloat16))
-        cache = tssm.init_ssm_cache(cfg, 2, n_layers=1)
+        cache = tssm.init_ssm_cache(cfg, 2, n_layers=1, device="cpu")
         state, conv = cache["state"][0], cache["conv"][0]
         outs = []
         for t in range(8):
@@ -207,7 +208,7 @@ def test_decode_step_equals_reference(arch, window):
            if jc.family in ("audio", "vlm") else None)
     clen = window or steps
     jcache = jtf.init_cache(jc, 2, clen)
-    tcache = ttf.init_cache(tc, 2, clen)
+    tcache = ttf.init_cache(tc, 2, clen, device="cpu")
     step = jax.jit(lambda p, c, t, pos, e: jtf.decode_step(jc, p, c, t, pos,
                                                            embeds=e))
     for t in range(steps):
@@ -297,3 +298,25 @@ def test_init_cache_equals_reference_shapes():
                 (arch, path)
     z = ttf.init_cache(get_config("zamba2-7b"), 1, 8, device="meta")
     assert z["attn"]["k"].shape[0] == 13
+
+
+def test_init_cache_defaults_to_cuda():
+    """The decode cache lands on the card unless the caller names another
+    device: without a card every cache constructor raises for its default,
+    and ``device="meta"`` still gives the shapes."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for arch in ("qwen1.5-0.5b", "deepseek-v3-671b", "mamba2-370m",
+                 "zamba2-7b"):
+        cfg = get_config(arch).reduced()
+        with pytest.raises(RuntimeError, match="is_available"):
+            ttf.init_cache(cfg, 2, 8)
+        meta = ttf.init_cache(cfg, 2, 8, device="meta")
+        assert all(v.device.type == "meta" for sub in meta.values()
+                   for v in sub.values())
+    cfg = get_config("deepseek-v3-671b").reduced()
+    for make in (tattn.init_kv_cache, tattn.init_mla_cache):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="is_available"):
+        tssm.init_ssm_cache(get_config("mamba2-370m").reduced(), 2)

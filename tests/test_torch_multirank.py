@@ -126,14 +126,14 @@ def _two_ranks(rank, ckpt_dir):
 def serve_ranks(rank, cfg, toks, steps):
     """One of two ranks of ``tests/test_torch_serve.py``'s data-2 serve:
     prefill and ``steps`` decode steps over (data 2, model 1), the cache
-    cut from a global one by ``shardings_fn``; and a (data 1, model 2)
-    mesh, whose step raises."""
+    cut from a global one by ``shardings_fn``; and the prefill over a
+    (data 1, model 2) mesh on the rank's parameter blocks."""
     prod = make_production_mesh(device_type="cpu")
     smesh = sharding.serve_mesh(prod)
     params = transformer.init_params(cfg, prng.PRNGKey(0))
     prefill, _ = serve.build_prefill(cfg, smesh)
     decode, shardings = serve.build_decode(cfg, smesh)
-    glob = transformer.init_cache(cfg, toks.shape[0], steps)
+    glob = transformer.init_cache(cfg, toks.shape[0], steps, device="cpu")
     _, cs, ts, _, ps = shardings(transformer.param_shapes(cfg), glob,
                                  toks[:, :1], None)
     cache = serve.local_shard(glob, cs, smesh)
@@ -141,14 +141,12 @@ def serve_ranks(rank, cfg, toks, steps):
     for t in range(steps):
         lg, cache = decode(params, cache, toks[:, t:t + 1], None, t)
         logits.append(lg)
-    tp_step, _ = serve.build_prefill(cfg, sharding.serve_mesh(
-        make_production_mesh(model=2, device_type="cpu")))
-    try:
-        tp_step(params, toks)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    return {"logits": logits, "cache": cache, "refused": refused,
+    tmesh = sharding.serve_mesh(make_production_mesh(model=2,
+                                                     device_type="cpu"))
+    tp_step, tp_shardings = serve.build_prefill(cfg, tmesh)
+    blocks, _, _ = tp_shardings(params, toks, None)
+    tp_logits = tp_step(serve.local_shard(params, blocks, tmesh), toks)
+    return {"logits": logits, "cache": cache, "tp_logits": tp_logits,
             "coords": sharding.coordinates(smesh), "tok_spec": ts.spec,
             "pos_spec": ps.spec, "placements": list(ts.placements())}
 

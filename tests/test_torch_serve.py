@@ -2,14 +2,16 @@
 ``build_prefill``, ``build_decode``) against ``repro.dist.serve`` on a
 one-device ``("data", "model")`` mesh on the CPU, their ``shardings_fn``
 against the reference's at its abstract ``(data 16, model 16)`` mesh, a
-``(data 2, model 1)`` serve over two gloo ranks against one process, the
-serve-shape helpers of the registry, and the port's ``serve_demo`` on the
-CPU.
+``(data 2, model 1)`` serve and a ``(data 1, model 2)`` prefill over two
+gloo ranks against one process (the model axis's full cases are
+``tests/test_torch_tp_serve.py``'s), the serve-shape helpers of the
+registry, and the port's ``serve_demo`` on the CPU.
 
 Tolerances:
 * shapes, dtypes, the registry's serve adjustments, the demo's prompt and
   every leaf's placement: equal exactly;
-* the data-2 serve, float32, against one process on the whole batch:
+* the data-2 serve and the model-2 prefill, float32, against one process
+  on the whole batch:
   logits and the cache's float leaves within ``1e-5`` of the largest,
   ``pos`` exactly;
 * prefill logits and decode logits in float32 compute (float32 scores):
@@ -188,7 +190,7 @@ def test_build_decode_equals_reference(arch):
     jp = jax.tree.map(jnp.asarray, pn)
     tp = ttf.params_from_jax(tc, pn)
     jcache = jtf.init_cache(jc, 2, 8)
-    tcache = ttf.init_cache(tc, 2, 8)
+    tcache = ttf.init_cache(tc, 2, 8, device="cpu")
     for t in range(8):
         jt = None if tok is None else tok[:, t:t + 1]
         je = None if emb is None else emb[:, t:t + 1]
@@ -221,7 +223,7 @@ def test_bfloat16_params_serve_in_bfloat16():
     toks = np.random.default_rng(0).integers(0, tc.vocab_size, (1, 8))
     logits = tserve.build_prefill(tc, "cpu")[0](tp, toks)
     assert logits.shape == (1, 8, tc.vocab_size)
-    cache = ttf.init_cache(tc, 1, 8)
+    cache = ttf.init_cache(tc, 1, 8, device="cpu")
     lg, cache = tserve.build_decode(tc, "cpu")[0](tp, cache, toks[:, :1],
                                                   None, 0)
     assert float((lg[:, 0].float() - logits[:, 0].float()).abs().max()) < TOL
@@ -275,7 +277,8 @@ def test_serve_demo_on_cpu(arch, window, capsys):
     tc = out["cfg"]
     tp = ttf.init_params(tc, prng.PRNGKey(0))
     tl, _ = tserve.build_decode(tc, "cpu")[0](
-        tp, ttf.init_cache(tc, 2, 12), out["prompt"][:, :1], None, 0)
+        tp, ttf.init_cache(tc, 2, 12, device="cpu"), out["prompt"][:, :1],
+        None, 0)
     assert float(np.abs(tl.float().numpy() - np.asarray(
         jl, np.float32)).max()) < TOL
 
@@ -349,7 +352,9 @@ def test_shardings_equal_reference(arch):
 
 def test_data_two_serve_equals_one_process():
     """(data 2, model 1) over two gloo ranks, each on its half of the
-    batch, against one process on the whole batch (float32)."""
+    batch, against one process on the whole batch (float32); and the same
+    ranks' prefill over (data 1, model 2), each on its parameter blocks,
+    against one process."""
     from torch.distributed.tensor import Replicate, Shard
     tc = dataclasses.replace(treg.get_config("qwen1.5-0.5b").reduced(
         n_layers=1, d_model=64, vocab=128), compute_dtype="float32")
@@ -364,7 +369,7 @@ def test_data_two_serve_equals_one_process():
     prefill, _ = tserve.build_prefill(tc, "cpu")
     decode, _ = tserve.build_decode(tc, "cpu")
     want = [prefill(params, toks)]
-    cache = ttf.init_cache(tc, toks.shape[0], steps)
+    cache = ttf.init_cache(tc, toks.shape[0], steps, device="cpu")
     for t in range(steps):
         lg, cache = decode(params, cache, toks[:, t:t + 1], None, t)
         want.append(lg)
@@ -372,7 +377,7 @@ def test_data_two_serve_equals_one_process():
     specs = tsh.cache_specs(cache, sizes)
     assert [r["coords"]["data"] for r in ranks] == [0, 1]
     for r in ranks:
-        assert "tensor-parallel serve" in r["refused"]
+        _close(r["tp_logits"], want[0].numpy(), "model-2 prefill")
         assert r["tok_spec"] == ("data", None) and r["pos_spec"] == ()
         assert r["placements"] == [Shard(0), Replicate()]
         rows = slice(2 * r["coords"]["data"], 2 * r["coords"]["data"] + 2)
