@@ -144,6 +144,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       step's tables joined over the ranks equal to the one-process run's,
       losses within 1e-5, x_hat within the flips rule, SignTopK held
       against its plain version on each rank's tiles;
+   o. the audits (``repro_torch.analysis``): the omega certificates of the
+      nine registry compressors at the main path's d, drawn on the card
+      (SignTopK launched for BlockTopFrac's) and held against the same
+      call on the CPU, field by field, worst ratio and bound within 1e-6;
+      the bits oracle's two fixtures (R10) on the card; K1's probes of
+      both kernels in every dtype (NaN-filled outputs on views one guard
+      tile short: every tile written, the guard untouched, equal to the
+      plain version) and K3's attributes against the sources' closed
+      form; the contract lint (R6-R9) of phase a's config at full width;
+      ``train --lint`` on the reduced config for one step. Phases f, g and
+      j hold every suite row's contract_status and bits_oracle (the convex
+      and LM rows equal to the committed files');
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -205,6 +217,15 @@ CKPT_ARGS = MAIN_ARGS + ["--momentum", "0.9"]
 # the depth of 24 that phases 3b and 3i keep, to hold the smoke inside its
 # time limit (the main path, 3a and 3n, keeps all 24 layers)
 CUT_DEPTH = 8
+# phase 3o: an omega certificate's f32 sums, card against CPU
+CERT_RTOL = 1e-6
+# phase 3o: --lint through the train entry on the reduced config, one step
+LINT_ARGS = ["--arch", "qwen1.5-0.5b", "--reduced", "--nodes", "4",
+             "--use-kernel", "--steps", "1", "--H", "1", "--device", "cuda",
+             "--lint"]
+# the isotropic draws of BlockTopFrac's omega certificate (trials=6, no
+# one-hot: an isotropic proxy), each a SignTopK launch on the card
+BLOCK_CERT_LAUNCHES = 6
 ULPS = 4           # x^0 against the host's draw (tests/test_torch_init.py)
 LM_RTOL = 1e-3     # LM rows, card against CPU (tests/test_torch_suites.py)
 # the generic path: no --use-kernel, one sync in 3 steps
@@ -705,7 +726,8 @@ def phase_suites(torch, dev, counts, zero_counts, read_counts) -> None:
                 nonconvex = rows
             for r in rows:
                 w = want[r["name"]]
-                cols = ("bits", "trigger_events", rounds)
+                cols = ("bits", "trigger_events", rounds, "contract_status",
+                        "bits_oracle")
                 if any(r[c] != w[c] for c in cols):
                     raise AssertionError(
                         f"{suite} {r['name']}: {[r[c] for c in cols]} != "
@@ -717,8 +739,9 @@ def phase_suites(torch, dev, counts, zero_counts, read_counts) -> None:
                     f"{r['final_loss']:.6f} (file {w['final_loss']}) "
                     f"us_per_call {r['us_per_call']:.1f} peak "
                     f"{r['peak_hbm_bytes']}")
+            check_contract_columns(rows, f"{suite} quick")
             log(f"{suite} quick: {len(rows)} rows == BENCH_{suite}.json in "
-                f"bits, triggers and rounds; launches "
+                f"bits, triggers, rounds and contract columns; launches "
                 f"{counts[f'{suite}_bits']} ({time.perf_counter() - t0:.1f} "
                 f"s)")
         # two rows on the card against the CPU over the CPU tests' 30 steps,
@@ -2029,6 +2052,129 @@ def _shard_pair_rank(rank, fault_argv, serve_tokens, decode_steps,
     return out
 
 
+def check_contract_columns(rows, suite) -> None:
+    """Every row of a suite carries the reference's contract columns: a
+    status of ok, warn(..) or n/a, and where there is an oracle, one that
+    brackets the row's bits."""
+    for r in rows:
+        status, oracle = r["contract_status"], r["bits_oracle"]
+        if status not in ("ok", "n/a") and not status.startswith("warn("):
+            raise AssertionError(f"{suite} {r['name']}: contract_status "
+                                 f"{status}")
+        if (status == "n/a") != (oracle is None):
+            raise AssertionError(f"{suite} {r['name']}: status {status} "
+                                 f"with bits_oracle {oracle}")
+        if oracle is not None and not (
+                oracle["lo"] * (1 - 1e-6) <= r["bits"]
+                <= oracle["hi"] * (1 + 1e-6)):
+            raise AssertionError(f"{suite} {r['name']}: bits {r['bits']} "
+                                 f"outside the oracle {oracle}")
+    log(f"{suite}: {len(rows)} rows carry contract_status "
+        f"{sorted({r['contract_status'] for r in rows})} and an oracle "
+        f"bracketing their bits")
+
+
+def phase_audits(torch, dev, train, counts, zero_counts, read_counts, D):
+    """3o: the audits on the card (``repro_torch.analysis``)."""
+    import contextlib
+    import io
+    from repro_torch.analysis import comm_lint, contracts, kernel_lint
+    from repro_torch.core.compression import omega_certificate
+    t0 = time.perf_counter()
+    # the nine registry compressors at the main path's d, card against CPU
+    same = ("name", "d", "omega", "kind", "qualifier", "d_test", "trials",
+            "refuted")
+    for comp in comm_lint.registry_probes():
+        if comp.name == "signtopk_block":
+            zero_counts()
+        card = omega_certificate(comp, D, device=dev)
+        if comp.name == "signtopk_block":
+            counts["omega_certificate"] = read_counts()
+            if counts["omega_certificate"]["sign_topk_blocks"] <= 0:
+                raise AssertionError("signtopk_block's certificate launched "
+                                     "no SignTopK kernel")
+        cpu = omega_certificate(comp, D, device="cpu")
+        for f in same:
+            if getattr(card, f) != getattr(cpu, f):
+                raise AssertionError(f"certificate {comp.name}: {f} "
+                                     f"{getattr(card, f)} on the card, "
+                                     f"{getattr(cpu, f)} on the CPU")
+        for f in ("worst_ratio", "bound"):
+            a, b = getattr(card, f), getattr(cpu, f)
+            if abs(a - b) > CERT_RTOL * abs(b):
+                raise AssertionError(f"certificate {comp.name}: {f} {a} on "
+                                     f"the card, {b} on the CPU")
+        if card.refuted or card.kind != "analytic":
+            raise AssertionError(f"certificate {comp.name}: {card}")
+        log(f"omega certificate {comp.name:15s} d {D} omega {card.omega:.6g} "
+            f"{card.kind}/{card.qualifier} trials {card.trials} worst "
+            f"{card.worst_ratio:.6f} (CPU {cpu.worst_ratio:.6f}) bound "
+            f"{card.bound:.6f}")
+    log(f"nine certificates card == CPU; signtopk_block's launches "
+        f"{counts['omega_certificate']} ({time.perf_counter() - t0:.1f} s)")
+    # R10's fixtures on the card
+    t1 = time.perf_counter()
+    f10, m10 = comm_lint.lint_bits_oracle(program="3o", device=dev)
+    want = {"clean": (11808.0, 6, 48), "faulty": (8364.0, 6, 46)}
+    for name, fx in m10["fixtures"].items():
+        got = tuple(fx["trace"][k] for k in ("bits", "sync_rounds",
+                                             "triggers"))
+        oracle = tuple(fx["oracle"][k] for k in ("bits", "sync_rounds",
+                                                 "triggers"))
+        if got != oracle or got != want[name]:
+            raise AssertionError(f"R10 {name}: trace {got}, oracle {oracle}, "
+                                 f"want {want[name]}")
+        log(f"R10 {name} fixture on the card: bits, syncs, triggers {got} "
+            f"== oracle")
+    if f10 or m10["payload_checks"] != 27:
+        raise AssertionError(f"R10: {[f.message for f in f10]}")
+    log(f"R10: {m10['payload_checks']} payload checks, no finding "
+        f"({time.perf_counter() - t1:.1f} s)")
+    # K1 and K3 on both kernels and every dtype
+    t1 = time.perf_counter()
+    f1, m1 = kernel_lint.lint_coverage_card(dev, program="3o")
+    f3, m3 = kernel_lint.lint_budget_card(program="3o")
+    for f in f1 + f3:
+        log(f"[{f.rule_id}/{f.severity.upper()}] {f.message}")
+    errors = [f for f in f1 + f3 if f.severity == "error"]
+    if errors:
+        raise AssertionError(f"K1/K3: {len(errors)} error(s)")
+    for entry, r in m1.items():
+        log(f"K1 {entry}: grid cap {r['grid_cap']} x {r['block']} threads; "
+            f"tiles {r['tiles']} written, guard tile untouched, == plain "
+            f"(max abs err {r['max_abs_err']:.3e}, {r['boundary_flips']} "
+            f"boundary flips)")
+    for entry, a in m3.items():
+        cf = a["closed_form"]
+        log(f"K3 {entry}: {a['num_regs']} registers (cap "
+            f"{cf['max_registers']}), {a['shared_bytes']} B static shared "
+            f"(closed form {cf['static_shared_bytes']}), {a['local_bytes']} "
+            f"B local, {a['blocks_per_sm']} blocks per SM (asks "
+            f"{cf['min_blocks'] or 1}), at most {a['max_threads']} threads")
+    log(f"K1 and K3 card legs: {time.perf_counter() - t1:.1f} s")
+    # the contract lint of phase 3a's flat-buffer config at full width
+    _, dcfg = train.configs(MAIN_ARGS)
+    res = contracts.run_contract_lint(dcfg, d=D, n=4, program="3o",
+                                      device=dev)
+    if res["errors"]:
+        raise AssertionError(f"phase 3a's config: {res['findings']}")
+    log(f"contract lint of phase 3a's config (d {D}, n 4): "
+        f"{[(f['rule_id'], f['severity']) for f in res['findings']]}")
+    # --lint through the train entry, reduced, one step
+    buf = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(buf):
+        out = train.run(LINT_ARGS)
+    counts["train_lint"] = read_counts()
+    text = buf.getvalue()
+    if "passes the static audit" not in text or len(out["losses"]) != 1:
+        raise AssertionError(f"train --lint: {text}")
+    log(f"train --lint, reduced, one step: "
+        f"{[ln for ln in text.splitlines() if 'lint' in ln]}; loss "
+        f"{out['losses'][0]:.4f}; launches {counts['train_lint']}")
+    return {"coverage": m1, "attributes": m3}
+
+
 def phase_shard(torch, dev, train, counts, zero_counts, read_counts,
                 main_rec):
     """Phase 3n: the sharded engine on the one card (see the module doc);
@@ -3072,13 +3218,16 @@ def main() -> int:
         if not np.all(np.isfinite(loss)) or loss[-1] >= loss[0]:
             raise AssertionError(f"convex {r['name']}: losses {loss}")
         w = want_convex[r["name"]]
-        cols = ("bits", "trigger_events", "rounds")
+        cols = ("bits", "trigger_events", "rounds", "contract_status",
+                "bits_oracle")
         if any(r[c] != w[c] for c in cols):
             raise AssertionError(f"convex {r['name']}: {[r[c] for c in cols]}"
                                  f" != BENCH_convex.json's "
                                  f"{[w[c] for c in cols]}")
+    check_contract_columns(convex, "convex quick")
     log(f"convex experiment, quick: {len(convex)} rows == BENCH_convex.json "
-        f"in bits, triggers and rounds; launches {counts['convex']} (its rows "
+        f"in bits, triggers, rounds and contract columns; launches "
+        f"{counts['convex']} (its rows "
         f"use the global operators); reference-engine phase "
         f"{time.perf_counter() - t_p:.1f} s")
 
@@ -3095,10 +3244,14 @@ def main() -> int:
         if not math.isfinite(r["final_loss"]):
             raise AssertionError(f"faults {r['name']}: loss not finite")
     block = next(r for r in fault_rows if r["name"] == "sparq_mixed_block")
-    # the block row's warm-up run and timed run: one launch per sync each
-    if counts["faults_bits"]["sign_topk_blocks"] != 2 * block["sync_rounds"]:
+    # the block row's warm-up run and timed run, one launch per sync each,
+    # and the draws of its row's omega certificate (the contract columns)
+    want_launches = 2 * block["sync_rounds"] + BLOCK_CERT_LAUNCHES
+    if counts["faults_bits"]["sign_topk_blocks"] != want_launches:
         raise AssertionError(f"faults: {counts['faults_bits']} launches for "
-                             f"2 x {block['sync_rounds']} block-row syncs")
+                             f"2 x {block['sync_rounds']} block-row syncs "
+                             f"and {BLOCK_CERT_LAUNCHES} certificate draws")
+    check_contract_columns(fault_rows, "faults full")
     fp_full = faults_bits.problem(quick=False, device="cuda")
     b_cfg = fp_full.sparq(fp_full.mixed, BlockTopFrac(frac=0.1))
     b_dev_s, b_acts, b_idle = profiled(
@@ -3122,13 +3275,15 @@ def main() -> int:
             f"{r['final_loss']:.6f} us_per_call {r['us_per_call']:.1f}")
         if not math.isfinite(r["final_loss"]):
             raise AssertionError(f"topology {r['name']}: loss not finite")
+    check_contract_columns(topo_rows, "topology quick")
     # quick mode, the card's rows against the CPU's: integer channels and
     # bits equal
     for bench, rows_g in ((faults_bits, None), (topology_bits, topo_rows)):
         rows_g = rows_g or bench.run_bench(quick=True, device="cuda")
         rows_c = bench.run_bench(quick=True, device="cpu")
         for rg, rc in zip(rows_g, rows_c, strict=True):
-            for col in ("name", "bits", "trigger_events"):
+            for col in ("name", "bits", "trigger_events", "contract_status",
+                        "bits_oracle"):
                 if rg[col] != rc[col]:
                     raise AssertionError(f"{bench.__name__} quick "
                                          f"{rc['name']}: {col} {rg[col]} on "
@@ -3184,10 +3339,21 @@ def main() -> int:
     max_err = max(max_err, shard_rec["trainer"]["max_abs_err"],
                   shard_rec["moe_fsdp"]["max_abs_err"])
     log(f"phase 3n: {time.perf_counter() - t0:.1f} s")
+    # ------------------------------------------------------- 3o. the audits
+    t0 = time.perf_counter()
+    audit_rec = phase_audits(torch, dev, train, counts, zero_counts,
+                             read_counts, D)
+    log(f"phase 3o: {time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------- 4. report
     def by_path(name):
         return {path: c[name] for path, c in counts.items()}
+
+    def audits(source):
+        # phase 3o's K1 probe and K3 attributes of each instantiation
+        return {e: {"k1": audit_rec["coverage"][e],
+                    "k3": audit_rec["attributes"][e]}
+                for e in audit_rec["coverage"] if e.startswith(source)}
     report = {"kernels": [{
         "name": "sign_topk_blocks", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sign_topk.cu",
@@ -3209,7 +3375,8 @@ def main() -> int:
         "sharded_rank_shape": [shard_rec["trainer"]["tiles_per_rank"], BLOCK],
         "sharded_rank_bound_ms": sign_topk_bound_ms(
             shard_rec["trainer"]["tiles_per_rank"]),
-        "sharded_rank_contended_ms": shard_rec["trainer"]["kernel_ms"]}, {
+        "sharded_rank_contended_ms": shard_rec["trainer"]["kernel_ms"],
+        "audits": audits("sign_topk")}, {
         "name": "qsgd_blocks", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/qsgd.cu",
         "replaces": "src/repro/kernels/qsgd.py:41",
@@ -3220,7 +3387,7 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": None,
         "library_note": "no single PyTorch call computes blockwise QSGD",
         "plain_tiles_per_call": PLAIN_ROWS,
-        "shape": [rows, BLOCK], "s": 16}]}
+        "shape": [rows, BLOCK], "s": 16, "audits": audits("qsgd")}]}
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(report))
     print(card_line())

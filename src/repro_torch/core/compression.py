@@ -7,8 +7,8 @@ A compression operator C satisfies, for some omega in (0, 1]:
 Every operator of the reference's registry is here: Identity, TopK, RandK,
 Sign, QSGD (the global-norm quantizer, not the blockwise kernel), SignTopK,
 QsTopK, TopFrac and BlockTopFrac, with ``compress_tree``,
-``tree_payload_bits`` and ``make_compressor``. ``omega_certificate`` raises:
-it is not ported yet (it draws normals; ROADMAP.md, audits).
+``tree_payload_bits``, ``make_compressor`` and the contraction audit
+``omega_certificate``.
 
 Batching. An operator acts on the last axis; leading axes are independent
 vectors (the reference engine passes its whole ``(n, d)`` ensemble at once,
@@ -22,13 +22,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bits as bits_mod
 from repro_torch.core import prng
+from repro_torch.device import resolve_device
 from repro_torch.kernels.sign_topk import BLOCK, sign_topk_blocks
 
 
@@ -368,12 +369,100 @@ _REGISTRY = {
 }
 
 
-def omega_certificate(comp: Compressor, d: int, **kw: Any) -> None:
-    """The reference's empirical omega audit (``compression.py:428``): not
-    ported yet, it waits for the audits slice (ROADMAP.md A.5, A.15)."""
-    raise NotImplementedError(
-        "omega_certificate is not ported yet (ROADMAP.md A.5: it draws "
-        "normals and waits for the audits slice)")
+# ------------------------------------------------------------ omega certificate
+#
+# The contract audit (repro_torch.analysis R7) holds every compressor to a
+# contraction certificate: an omega(d) in (0, 1] with
+# E_C ||x - C(x)||^2 <= (1 - omega) ||x||^2. Registry operators declare
+# analytic omegas; TopFrac's k/d is an isotropic proxy (its adversarial
+# worst case is SignTopK's 1/d), so it is checked on isotropic draws only,
+# while worst-case certificates also face a one-hot adversarial input. A
+# compressor that keeps the base class's ``omega`` gets a sampled lower
+# bound from the same draws instead of the identity's claim of 1.
+
+@dataclasses.dataclass(frozen=True)
+class OmegaCertificate:
+    """Result of certifying one compressor's contraction factor at size d."""
+
+    name: str
+    d: int              # dimension the certificate's omega is evaluated at
+    omega: float        # certified contraction factor in (0, 1]
+    kind: str           # "analytic" (declared omega) | "sampled"
+    qualifier: str      # "worst-case" | "isotropic-proxy"
+    d_test: int         # dimension the empirical draws ran at
+    trials: int         # draws checked (isotropic, plus the one-hot)
+    worst_ratio: float  # max observed E_C ||x - C(x)||^2 / ||x||^2
+    bound: float        # 1 - omega(d_test) + tol the ratios were held to
+    refuted: bool       # an observed ratio exceeded the certified bound
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _mean_contraction_ratio(comp: Compressor, x: torch.Tensor,
+                            key: torch.Tensor, key_draws: int) -> float:
+    """E_C ||x - C(x)||^2 / ||x||^2, averaging the operator's randomness
+    over ``split(key, key_draws)`` (``compression.py:411``)."""
+    sq = float(torch.sum(x * x))
+    if sq == 0.0:
+        return 0.0
+    if comp.deterministic:
+        err = x - comp(x, key)
+        return float(torch.sum(err * err)) / sq
+    total = 0.0
+    for k in prng.split(key, key_draws):
+        err = x - comp(x, k)
+        total += float(torch.sum(err * err))
+    return total / (key_draws * sq)
+
+
+def omega_certificate(comp: Compressor, d: int, *, d_test: int = 4096,
+                      trials: int = 6, key_draws: int = 8,
+                      tol: float = 0.05, seed: int = 0,
+                      device: Union[str, torch.device, None] = "cuda"
+                      ) -> OmegaCertificate:
+    """Certify ``comp``'s contraction omega at model dimension ``d``
+    (``compression.py:428``), with the reference's draws made on
+    ``device``: ``normal(fold_in(PRNGKey(seed), i), (d_test,))`` for each
+    trial, the one-hot adversarial input for a declared worst-case omega,
+    and ``split(fold_in(PRNGKey(seed + 1), i), key_draws)`` for a stochastic
+    operator on draw i. The draws run at ``d_test = min(d, d_test)``. On a
+    CUDA device BlockTopFrac runs through the SignTopK kernel."""
+    dev = resolve_device(device)
+    d = int(d)
+    d_test = int(min(d, d_test))
+    declared = type(comp).omega is not Compressor.omega \
+        or isinstance(comp, Identity)
+    proxy = isinstance(comp, TopFrac)
+    base = prng.PRNGKey(seed, device=dev)
+    draws = [prng.normal(prng.fold_in(base, i), (d_test,))
+             for i in range(trials)]
+    if declared and not proxy:
+        # worst-case certificates must survive the adversarial one-hot too
+        one_hot = torch.zeros((d_test,), dtype=torch.float32, device=dev)
+        one_hot[0] = 1.0
+        draws.append(one_hot)
+    key = prng.PRNGKey(seed + 1, device=dev)
+    worst = max(_mean_contraction_ratio(comp, x, prng.fold_in(key, i),
+                                        key_draws)
+                for i, x in enumerate(draws))
+    if declared:
+        omega_d, omega_t = float(comp.omega(d)), float(comp.omega(d_test))
+        bound = 1.0 - omega_t + tol
+        refuted = (not 0.0 < omega_d <= 1.0) or worst > bound
+        kind = "analytic"
+    else:
+        # half the observed contraction margin, floored: conservative by
+        # construction, so never self-refuting
+        omega_d = max((1.0 - worst) * 0.5, 1e-4)
+        bound = 1.0 - omega_d + tol
+        refuted = False
+        kind = "sampled"
+    return OmegaCertificate(
+        name=comp.name, d=d, omega=omega_d, kind=kind,
+        qualifier="isotropic-proxy" if proxy else "worst-case",
+        d_test=d_test, trials=len(draws), worst_ratio=float(worst),
+        bound=float(bound), refuted=bool(refuted))
 
 
 def make_compressor(name: str, **kw) -> Compressor:

@@ -16,6 +16,12 @@ Build: every ``csrc/*.cu`` is compiled at first use by ``nvcc`` for
 ``ctypes``. Pointers and the stream pass as ``c_void_p``. Every C entry
 point returns ``cudaGetLastError()`` after its launch, and :func:`check`
 raises when that is not 0.
+
+Beside each launch entry ``<entry>`` a source exports
+``<entry>_launch_config`` (the grid and block the launch uses) and
+``<entry>_attributes`` (``cudaFuncGetAttributes`` and the occupancy of the
+compiled kernel), which :func:`launch_config` and :func:`attributes` read
+for the audits (``repro_torch.analysis.kernel_lint``).
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -127,6 +133,41 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(
             f"CUDA kernel {what} failed to launch: error {code} "
             f"({err(code).decode()})")
+
+
+def launch_config(source: str, entry: str, n_tiles: int) -> Tuple[int, int]:
+    """``(grid, block)`` of launch entry ``entry`` of ``csrc/<source>.cu``
+    over ``n_tiles`` tiles, from ``<entry>_launch_config``, the function
+    the launch itself calls. Raises on a CUDA error."""
+    lib = library(source)
+    fn = bind(lib, f"{entry}_launch_config",
+              (ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
+               ctypes.POINTER(ctypes.c_int)))
+    grid, block = ctypes.c_int(0), ctypes.c_int(0)
+    check(lib, fn(int(n_tiles), ctypes.byref(grid), ctypes.byref(block)),
+          f"{entry}_launch_config")
+    return grid.value, block.value
+
+
+def attributes(source: str, entry: str) -> Dict[str, int]:
+    """The compiled kernel behind launch entry ``entry`` of
+    ``csrc/<source>.cu``, from ``<entry>_attributes``: ``num_regs``,
+    ``shared_bytes`` (static shared memory), ``local_bytes`` (spills),
+    ``max_threads`` per block and ``blocks_per_sm`` at the launch's block
+    size. Raises on a CUDA error."""
+    lib = library(source)
+    fn = bind(lib, f"{entry}_attributes",
+              (ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
+               ctypes.POINTER(ctypes.c_longlong),
+               ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)))
+    regs, threads, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    shared, local = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    check(lib, fn(ctypes.byref(regs), ctypes.byref(shared),
+                  ctypes.byref(local), ctypes.byref(threads),
+                  ctypes.byref(blocks)), f"{entry}_attributes")
+    return {"num_regs": regs.value, "shared_bytes": shared.value,
+            "local_bytes": local.value, "max_threads": threads.value,
+            "blocks_per_sm": blocks.value}
 
 
 def uses_kernel(*tensors: Optional[torch.Tensor]) -> bool:

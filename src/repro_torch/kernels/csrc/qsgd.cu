@@ -124,10 +124,11 @@ qsgd_kernel(const T* __restrict__ x, const float* __restrict__ u, float s,
   }
 }
 
+// The grid and block of a launch over n_tiles: 32 blocks per SM, capped by
+// the tiles. launch() and the audits' probes (repro_torch/analysis/
+// kernel_lint.py, K1) both take it from here.
 template <typename T>
-int launch(const void* x, const void* u, int s, long long n_tiles, void* out,
-           void* stream) {
-  if (n_tiles <= 0) return (int)cudaSuccess;
+int launch_config(long long n_tiles, int* grid, int* block) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -135,8 +136,35 @@ int launch(const void* x, const void* u, int s, long long n_tiles, void* out,
   if (err != cudaSuccess) return (int)err;
   const long long want = (n_tiles + kWarps - 1) / kWarps;
   const long long cap = 32LL * sms;
-  const int grid = (int)(want < cap ? want : cap);
-  qsgd_kernel<T><<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+  *grid = (int)(want < cap ? want : cap);
+  *block = kWarps * 32;
+  return (int)cudaSuccess;
+}
+
+// What the compiler gave the kernel (cudaFuncGetAttributes) and its resident
+// blocks per SM at the launch's block size: the audits' K3 leg.
+template <typename T>
+int attributes(int* num_regs, long long* shared_bytes, long long* local_bytes,
+               int* max_threads, int* blocks_per_sm) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, qsgd_kernel<T>);
+  if (err != cudaSuccess) return (int)err;
+  *num_regs = a.numRegs;
+  *shared_bytes = (long long)a.sharedSizeBytes;
+  *local_bytes = (long long)a.localSizeBytes;
+  *max_threads = a.maxThreadsPerBlock;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, qsgd_kernel<T>, kWarps * 32, 0);
+}
+
+template <typename T>
+int launch(const void* x, const void* u, int s, long long n_tiles, void* out,
+           void* stream) {
+  if (n_tiles <= 0) return (int)cudaSuccess;
+  int grid = 0, block = 0;
+  const int err = launch_config<T>(n_tiles, &grid, &block);
+  if (err != (int)cudaSuccess) return err;
+  qsgd_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(u), (float)s,
       n_tiles, static_cast<T*>(out));
   return (int)cudaGetLastError();
@@ -156,6 +184,30 @@ int qsgd_f32(const void* x, const void* u, int s, long long n_tiles, void* out,
 int qsgd_bf16(const void* x, const void* u, int s, long long n_tiles,
               void* out, void* stream) {
   return launch<__nv_bfloat16>(x, u, s, n_tiles, out, stream);
+}
+
+// The launch's grid and block for n_tiles, and the compiled kernel's
+// attributes, per instantiated type. Each returns a cudaError_t.
+int qsgd_f32_launch_config(long long n_tiles, int* grid, int* block) {
+  return launch_config<float>(n_tiles, grid, block);
+}
+
+int qsgd_bf16_launch_config(long long n_tiles, int* grid, int* block) {
+  return launch_config<__nv_bfloat16>(n_tiles, grid, block);
+}
+
+int qsgd_f32_attributes(int* num_regs, long long* shared_bytes,
+                        long long* local_bytes, int* max_threads,
+                        int* blocks_per_sm) {
+  return attributes<float>(num_regs, shared_bytes, local_bytes, max_threads,
+                           blocks_per_sm);
+}
+
+int qsgd_bf16_attributes(int* num_regs, long long* shared_bytes,
+                         long long* local_bytes, int* max_threads,
+                         int* blocks_per_sm) {
+  return attributes<__nv_bfloat16>(num_regs, shared_bytes, local_bytes,
+                                   max_threads, blocks_per_sm);
 }
 
 const char* error_string(int code) {

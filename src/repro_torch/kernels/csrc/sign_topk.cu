@@ -306,11 +306,11 @@ sign_topk_kernel(const T* __restrict__ x_half, const T* __restrict__ x_hat,
   }
 }
 
+// The grid and block of a launch over n_tiles: the resident block count
+// times the SMs, capped by the tiles. launch() and the audits' probes
+// (repro_torch/analysis/kernel_lint.py, K1) both take it from here.
 template <typename T>
-int launch(const void* x_half, const void* x_hat, float trig, int k_b,
-           long long n_tiles, void* q, void* x_hat_new, void* scale,
-           void* stream) {
-  if (n_tiles <= 0) return (int)cudaSuccess;
+int launch_config(long long n_tiles, int* grid, int* block) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -321,8 +321,36 @@ int launch(const void* x_half, const void* x_hat, float trig, int k_b,
   if (err != cudaSuccess) return (int)err;
   const long long want = (n_tiles + kWarps - 1) / kWarps;
   const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  const int grid = (int)(want < cap ? want : cap);
-  sign_topk_kernel<T><<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
+  *grid = (int)(want < cap ? want : cap);
+  *block = kWarps * 32;
+  return (int)cudaSuccess;
+}
+
+// What the compiler gave the kernel (cudaFuncGetAttributes) and its resident
+// blocks per SM at the launch's block size: the audits' K3 leg.
+template <typename T>
+int attributes(int* num_regs, long long* shared_bytes, long long* local_bytes,
+               int* max_threads, int* blocks_per_sm) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, sign_topk_kernel<T>);
+  if (err != cudaSuccess) return (int)err;
+  *num_regs = a.numRegs;
+  *shared_bytes = (long long)a.sharedSizeBytes;
+  *local_bytes = (long long)a.localSizeBytes;
+  *max_threads = a.maxThreadsPerBlock;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, sign_topk_kernel<T>, kWarps * 32, 0);
+}
+
+template <typename T>
+int launch(const void* x_half, const void* x_hat, float trig, int k_b,
+           long long n_tiles, void* q, void* x_hat_new, void* scale,
+           void* stream) {
+  if (n_tiles <= 0) return (int)cudaSuccess;
+  int grid = 0, block = 0;
+  const int err = launch_config<T>(n_tiles, &grid, &block);
+  if (err != (int)cudaSuccess) return err;
+  sign_topk_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
       static_cast<const T*>(x_half), static_cast<const T*>(x_hat), trig, k_b,
       n_tiles, static_cast<T*>(q), static_cast<T*>(x_hat_new),
       static_cast<float*>(scale));
@@ -348,6 +376,30 @@ int sign_topk_bf16(const void* x_half, const void* x_hat, float trig, int k_b,
                    void* stream) {
   return launch<__nv_bfloat16>(x_half, x_hat, trig, k_b, n_tiles, q,
                                x_hat_new, scale, stream);
+}
+
+// The launch's grid and block for n_tiles, and the compiled kernel's
+// attributes, per instantiated type. Each returns a cudaError_t.
+int sign_topk_f32_launch_config(long long n_tiles, int* grid, int* block) {
+  return launch_config<float>(n_tiles, grid, block);
+}
+
+int sign_topk_bf16_launch_config(long long n_tiles, int* grid, int* block) {
+  return launch_config<__nv_bfloat16>(n_tiles, grid, block);
+}
+
+int sign_topk_f32_attributes(int* num_regs, long long* shared_bytes,
+                             long long* local_bytes, int* max_threads,
+                             int* blocks_per_sm) {
+  return attributes<float>(num_regs, shared_bytes, local_bytes, max_threads,
+                           blocks_per_sm);
+}
+
+int sign_topk_bf16_attributes(int* num_regs, long long* shared_bytes,
+                              long long* local_bytes, int* max_threads,
+                              int* blocks_per_sm) {
+  return attributes<__nv_bfloat16>(num_regs, shared_bytes, local_bytes,
+                                   max_threads, blocks_per_sm);
 }
 
 const char* error_string(int code) {

@@ -15,6 +15,7 @@ nothing else.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,7 +25,7 @@ BLOCK = 1024
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p)
-_SYMBOLS = {torch.float32: "qsgd_f32", torch.bfloat16: "qsgd_bf16"}
+ENTRIES = {torch.float32: "qsgd_f32", torch.bfloat16: "qsgd_bf16"}
 
 
 def qsgd_rows(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
@@ -49,8 +50,26 @@ def _check(x: torch.Tensor, u: torch.Tensor, s: int) -> None:
         raise ValueError(f"s must be a positive number of levels, got {s}")
 
 
+def entry(dtype: torch.dtype) -> Tuple[ctypes.CDLL, ctypes._CFuncPtr]:
+    """The library and the bound C launch entry for ``dtype``: ``(x, u, s,
+    n_tiles, out, stream)``."""
+    lib = kernels.library("qsgd")
+    return lib, kernels.bind(lib, ENTRIES[dtype], _ARGTYPES)
+
+
+def launch_config(dtype: torch.dtype, n_tiles: int) -> Tuple[int, int]:
+    """``(grid, block)`` of the kernel's launch over ``n_tiles`` tiles."""
+    return kernels.launch_config("qsgd", ENTRIES[dtype], n_tiles)
+
+
+def attributes(dtype: torch.dtype) -> Dict[str, int]:
+    """The compiled kernel's registers, static shared memory, local memory,
+    largest block and resident blocks per SM (:func:`kernels.attributes`)."""
+    return kernels.attributes("qsgd", ENTRIES[dtype])
+
+
 def _launch(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
-    if x.dtype not in _SYMBOLS:
+    if x.dtype not in ENTRIES:
         raise TypeError(f"qsgd kernel takes float32 or bfloat16 x, got "
                         f"{x.dtype}")
     if u.dtype != torch.float32:
@@ -62,8 +81,7 @@ def _launch(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
     n = x.shape[0]
     if n == 0:
         return out
-    lib = kernels.library("qsgd")
-    fn = kernels.bind(lib, _SYMBOLS[x.dtype], _ARGTYPES)
+    lib, fn = entry(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(kernels.ptr(x), kernels.ptr(u), int(s), n, kernels.ptr(out),

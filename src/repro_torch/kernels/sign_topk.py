@@ -16,7 +16,7 @@ launches and nothing else.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -27,7 +27,7 @@ BLOCK = 1024
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p)
-_SYMBOLS = {torch.float32: "sign_topk_f32", torch.bfloat16: "sign_topk_bf16"}
+ENTRIES = {torch.float32: "sign_topk_f32", torch.bfloat16: "sign_topk_bf16"}
 
 
 def _row_threshold(av: torch.Tensor, k_b: int) -> torch.Tensor:
@@ -72,7 +72,7 @@ def _block_compress(diff: torch.Tensor, trig: Union[float, torch.Tensor],
 
 def _check_cuda_inputs(x_half: torch.Tensor, x_hat: Optional[torch.Tensor],
                        k_b: int) -> None:
-    if x_half.dtype not in _SYMBOLS:
+    if x_half.dtype not in ENTRIES:
         raise TypeError(f"sign_topk kernel takes float32 or bfloat16, got "
                         f"{x_half.dtype}")
     if x_half.dim() != 2 or x_half.shape[1] != BLOCK:
@@ -89,6 +89,24 @@ def _check_cuda_inputs(x_half: torch.Tensor, x_hat: Optional[torch.Tensor],
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def entry(dtype: torch.dtype) -> Tuple[ctypes.CDLL, ctypes._CFuncPtr]:
+    """The library and the bound C launch entry for ``dtype``: ``(x_half,
+    x_hat, trig, k_b, n_tiles, q, x_hat_new, scale, stream)``."""
+    lib = kernels.library("sign_topk")
+    return lib, kernels.bind(lib, ENTRIES[dtype], _ARGTYPES)
+
+
+def launch_config(dtype: torch.dtype, n_tiles: int) -> Tuple[int, int]:
+    """``(grid, block)`` of the kernel's launch over ``n_tiles`` tiles."""
+    return kernels.launch_config("sign_topk", ENTRIES[dtype], n_tiles)
+
+
+def attributes(dtype: torch.dtype) -> Dict[str, int]:
+    """The compiled kernel's registers, static shared memory, local memory,
+    largest block and resident blocks per SM (:func:`kernels.attributes`)."""
+    return kernels.attributes("sign_topk", ENTRIES[dtype])
+
+
 def _launch(x_half: torch.Tensor, x_hat: Optional[torch.Tensor], trig: float,
             k_b: int) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                torch.Tensor]:
@@ -99,8 +117,7 @@ def _launch(x_half: torch.Tensor, x_hat: Optional[torch.Tensor], trig: float,
     scale = torch.empty((n,), dtype=torch.float32, device=x_half.device)
     if n == 0:
         return q, x_hat_new, scale
-    lib = kernels.library("sign_topk")
-    fn = kernels.bind(lib, _SYMBOLS[x_half.dtype], _ARGTYPES)
+    lib, fn = entry(x_half.dtype)
     with torch.cuda.device(x_half.device):
         stream = torch.cuda.current_stream(x_half.device).cuda_stream
         code = fn(kernels.ptr(x_half), kernels.ptr(x_hat), float(trig), k_b,

@@ -79,6 +79,8 @@ def run_bench(quick: bool = True, device: str = "cuda") -> List[Dict]:
             "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
             "threefry_partitionable": prng.partitionable(),
             "device": str(x0.device), "trace": trace.to_dict()})
+        rows[-1].update(suite_io.contract_columns(cfg, x0.numel(), rows[-1],
+                                                  "rounds"))
     return rows
 
 

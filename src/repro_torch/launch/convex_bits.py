@@ -32,6 +32,7 @@ from repro_torch.core.topology import make_topology
 from repro_torch.core.triggers import piecewise, zero
 from repro_torch.data.synthetic import convex_dataset, logistic_loss_and_grad
 from repro_torch.device import resolve_device
+from repro_torch.launch import suite_io
 
 
 def run_bench(quick: bool = True, device: str = "cuda") -> List[Dict]:
@@ -56,20 +57,21 @@ def run_bench(quick: bool = True, device: str = "cuda") -> List[Dict]:
 
     results = []
 
-    def row(name, trace, us, mem, rounds, events):
-        results.append({
-            "name": name, "device": str(dev), "us_per_call": us,
-            "final_loss": trace[-1][2], "bits": trace[-1][1],
-            "rounds": rounds, "trigger_events": events,
-            "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
-            "trace": trace})
+    def row(name, trace, us, mem, rounds, events, cfg=None):
+        r = {"name": name, "device": str(dev), "us_per_call": us,
+             "final_loss": trace[-1][2], "bits": trace[-1][1],
+             "rounds": rounds, "trigger_events": events,
+             "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
+             "trace": trace}
+        r.update(suite_io.contract_columns(cfg, d, r, "rounds"))
+        results.append(r)
 
     def record(name, cfg):
         runner = engine.make_runner(make_step(cfg, grad_fn), T,
                                     record_every=rec, eval_fn=eval_fn)
         st, trace, us, mem = engine.timed_run(
             runner, lambda: cfg.init_state(x0), key, T)
-        row(name, trace, us, mem, st.sync_rounds, int(st.triggers))
+        row(name, trace, us, mem, st.sync_rounds, int(st.triggers), cfg)
 
     # SPARQ-SGD: H=5 local steps, the trigger and SignTopK. c_t eta_t^2 must
     # be commensurate with ||x_half - x_hat||^2 ~ d eta^2 G^2, so the

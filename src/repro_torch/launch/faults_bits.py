@@ -39,6 +39,7 @@ from repro_torch.core.topology import Topology, make_topology
 from repro_torch.core.triggers import ThresholdSchedule, piecewise
 from repro_torch.data.synthetic import convex_dataset, logistic_loss_and_grad
 from repro_torch.device import resolve_device
+from repro_torch.launch import suite_io
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +103,8 @@ def run_bench(quick: bool = True, device: str = "cuda") -> List[Dict]:
 
     results = []
 
-    def record(name: str, method: str, step_fn, init_state, faults) -> None:
+    def record(name: str, method: str, step_fn, init_state, faults,
+               cfg=None) -> None:
         runner = engine.make_runner(step_fn, T, record_every=p.rec,
                                     eval_fn=p.eval_fn)
         st, trace, us, mem = engine.timed_run(runner, init_state, key, T)
@@ -115,16 +117,18 @@ def run_bench(quick: bool = True, device: str = "cuda") -> List[Dict]:
             "sync_rounds": getattr(st, "sync_rounds", T),
             "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
             **fault_cols(faults), "trace": trace})
+        results[-1].update(suite_io.contract_columns(cfg, p.d, results[-1],
+                                                     "sync_rounds"))
 
     def record_sparq(name: str, faults, c: Compressor = comp) -> None:
         cfg = p.sparq(faults, c)
         record(name, "sparq", make_step(cfg, p.grad_fn),
-               lambda: cfg.init_state(p.x0), faults)
+               lambda: cfg.init_state(p.x0), faults, cfg)
 
     def record_choco(name: str, faults) -> None:
         cfg = baselines.choco_config(p.topo, comp, p.lr, faults=faults)
         record(name, "choco", make_step(cfg, p.grad_fn),
-               lambda: cfg.init_state(p.x0), faults)
+               lambda: cfg.init_state(p.x0), faults, cfg)
 
     def record_vanilla(name: str, faults) -> None:
         record(name, "vanilla",

@@ -62,7 +62,10 @@ def run_sparq_row(wl: LMWorkload, name: str, cfg: SparqConfig) -> Dict:
                                 record_every=wl.rec, eval_fn=wl.eval_fn)
     st, trace, us, mem = engine.timed_run(
         runner, lambda: cfg.init_state(wl.flat0), prng.PRNGKey(1), wl.T)
-    return row(name, st, trace, us, mem, wl)
+    r = row(name, st, trace, us, mem, wl)
+    r.update(suite_io.contract_columns(cfg, wl.flat0.numel(), r,
+                                       "sync_rounds"))
+    return r
 
 
 def run_vanilla_row(wl: LMWorkload, name: str) -> Dict:
@@ -76,7 +79,10 @@ def run_vanilla_row(wl: LMWorkload, name: str) -> Dict:
     st, trace, us, mem = engine.timed_run(
         runner, lambda: baselines.init_vanilla(wl.flat0, wl.n, vopt),
         prng.PRNGKey(1), wl.T)
-    return row(name, st, trace, us, mem, wl)
+    r = row(name, st, trace, us, mem, wl)
+    r.update(suite_io.contract_columns(None, wl.flat0.numel(), r,
+                                       "sync_rounds"))
+    return r
 
 
 def run_bench(quick: bool = True, device: str = "cuda") -> List[Dict]:

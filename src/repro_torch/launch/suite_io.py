@@ -11,7 +11,7 @@ import argparse
 import json
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from repro_torch.core import prng
 
@@ -36,11 +36,27 @@ def parse(description: str, argv: Optional[Sequence[str]]
     return args
 
 
+def contract_columns(cfg: Optional[Any], d: int, row: Dict, rounds: str
+                     ) -> Dict[str, Any]:
+    """A row's ``contract_status`` and ``bits_oracle`` (the reference's
+    suites' ``contract_status(cfg, d, bits=..., sync_rounds=...,
+    trigger_events=...)``), from the row's bits, its ``rounds`` column and
+    its trigger events; the certificate draws on the row's device. A row
+    with no ``SparqConfig`` (a vanilla baseline) has no contract: ``n/a``
+    and None, as ``benchmarks/run.py:217`` gives it."""
+    if cfg is None:
+        return {"contract_status": "n/a", "bits_oracle": None}
+    from repro_torch.analysis.contracts import contract_status
+    return contract_status(cfg, d, bits=row["bits"],
+                           sync_rounds=int(row[rounds]),
+                           trigger_events=int(row["trigger_events"]),
+                           device=row["device"])
+
+
 def write(suite: str, rows: List[Dict], args: argparse.Namespace,
           elapsed_s: float) -> None:
     """``{"suite", "quick", "threefry_partitionable", "elapsed_s", "rows"}``
-    to ``args.out`` when given. The reference's ``contract_status`` and
-    ``bits_oracle`` columns wait for the audits and are left out."""
+    to ``args.out`` when given."""
     if not args.out:
         return
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

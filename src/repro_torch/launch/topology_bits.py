@@ -32,6 +32,7 @@ from repro_torch.core.topology import GossipPlan, make_plan
 from repro_torch.core.triggers import zero
 from repro_torch.data.synthetic import convex_dataset, logistic_loss_and_grad
 from repro_torch.device import resolve_device
+from repro_torch.launch import suite_io
 
 
 def run_bench(quick: bool = True, device: str = "cuda") -> List[Dict]:
@@ -83,6 +84,8 @@ def run_bench(quick: bool = True, device: str = "cuda") -> List[Dict]:
             "trigger_events": int(st.triggers),
             "peak_hbm_bytes": mem["peak_hbm_bytes"] if mem else None,
             "trace": trace.to_dict()})
+        rows[-1].update(suite_io.contract_columns(cfg, f * c, rows[-1],
+                                                  "rounds"))
     return rows
 
 

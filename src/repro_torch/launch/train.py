@@ -38,7 +38,10 @@ and runs the steps left up to ``--steps``:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --nodes 4 \
       --use-kernel --steps 6 --H 3 --ckpt-dir ckpt --resume
 
-``--lint`` is not ported yet and raises with the reason (the audits).
+``--lint`` audits the configuration before the first step: the theory
+contracts R6-R9 and the charged payload (R10) of ``repro_torch.analysis``;
+an error ends the run. Under ``--devices`` rank 0 audits and the others wait
+on its verdict.
 """
 from __future__ import annotations
 
@@ -110,7 +113,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--use-kernel", action="store_true",
                     help="the blockwise SignTopK CUDA kernel path")
     ap.add_argument("--lint", action="store_true",
-                    help="static audit of the compiled step (not ported)")
+                    help="audit the configuration (theory contracts R6-R9, "
+                         "payload R10) before the first step")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
@@ -118,13 +122,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a GPU raises")
     return ap
-
-
-def _refuse_unported(args: argparse.Namespace) -> None:
-    if args.lint:
-        raise SystemExit("[train] not ported: --lint: the static audit "
-                         "checks XLA programs and has no counterpart in the "
-                         "port yet (ROADMAP.md, audits)")
 
 
 def _fault_plan(args: argparse.Namespace) -> FaultPlan:
@@ -177,7 +174,6 @@ def run(argv: Optional[Sequence[str]] = None, on_sync=None,
     ``run`` with it."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
     if args.resume and not args.ckpt_dir:
         raise SystemExit("[train] --resume needs --ckpt-dir")
     if not args.devices and mesh is None:
@@ -293,6 +289,40 @@ def train_steps(train_step, state: Dict[str, Any], pipe, start: int,
         "triggers": [int(v) for v in trig], "s_per_step": s_per_step}
 
 
+def _lint(dcfg, train_step, pshape, arch: str, ranked: bool) -> None:
+    """``--lint``: the reference's contract leg (``train.py:223-251``, less
+    its XLA module): R6-R9 over the config at the true d and n, and the
+    charged payload against the flat-buffer derivation (R10). Raises
+    SystemExit on an unsuppressed error. With ranks, rank 0 audits and
+    broadcasts the error count."""
+    n_errors = [0]
+    if ranked:
+        import torch.distributed as dist
+    if not ranked or dist.get_rank() == 0:
+        from repro_torch.analysis.comm_lint import lint_dist_payload
+        from repro_torch.analysis.contracts import run_contract_lint
+        from repro_torch.analysis.rules import ERROR
+        program = f"train[{arch}]"
+        contract = run_contract_lint(
+            dcfg, d=train_step.d_model_total, n=train_step.n_nodes,
+            program=program, device=train_step.device)
+        payload = lint_dist_payload(train_step.compressor, pshape,
+                                    train_step.payload_bits, program=program)
+        for f in payload:
+            print(f"  [lint {f.rule_id}/{f.severity.upper()}] {f.message}",
+                  flush=True)
+        n_errors[0] = contract["errors"] + sum(f.severity == ERROR
+                                               for f in payload)
+    if ranked:
+        dist.broadcast_object_list(n_errors, src=0)
+    if n_errors[0]:
+        raise SystemExit(f"[train] --lint: {n_errors[0]} static-audit "
+                         f"error(s) in the configuration (see findings "
+                         f"above)")
+    print("[train] --lint: the configuration passes the static audit "
+          "(theory contracts R6-R9, payload R10)")
+
+
 def _run(args: argparse.Namespace, on_sync, on_checkpoint, mesh: Any = None
          ) -> Dict[str, Any]:
     from repro_torch.checkpoint import ckpt
@@ -347,6 +377,9 @@ def _run(args: argparse.Namespace, on_sync, on_checkpoint, mesh: Any = None
               f"stragglers={faults.stragglers}@{faults.straggler_frac} "
               f"dropout={[(w.node, w.start, w.end) for w in faults.dropout]} "
               f"seed={faults.seed}")
+
+    if args.lint:
+        _lint(dcfg, train_step, pshape, cfg.arch_id, mesh is not None)
 
     start, last, restored = 0, None, None
     if args.resume:

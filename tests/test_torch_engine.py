@@ -388,12 +388,9 @@ def test_step_leaves_its_input_state_alone(problem):
 
 
 def test_unported_options_raise():
-    """What the reference engine still refuses: ``omega_certificate`` is not
-    ported; a config with both ``topology=`` and ``plan=``, gamma* without
-    the dimension, and a fault plan naming a node outside the ensemble raise
-    as the reference's do."""
-    with pytest.raises(NotImplementedError, match="A.5"):
-        compression.omega_certificate(compression.Sign(), 64)
+    """What the reference engine refuses: a config with both ``topology=``
+    and ``plan=``, gamma* without the dimension, and a fault plan naming a
+    node outside the ensemble raise as the reference's do."""
     for sp, tp, fl in ((sparq, topology, tfaults), (jsparq, jtopo, jfaults)):
         ring = tp.make_topology("ring", 4)
         with pytest.raises(ValueError, match="not both"):

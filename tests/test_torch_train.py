@@ -1,6 +1,6 @@
 """The port's train entry point on the CPU at a tiny size: the kernel path,
 the generic path, the fault and time-varying-plan flags with their effect,
-``--devices`` on the CPU, the refusal of ``--lint`` (not ported), and the
+``--devices`` on the CPU, ``--lint``'s audit of the configuration, and the
 rule that nothing drops to the CPU or to a plain version on its own."""
 import ast
 import math
@@ -41,10 +41,21 @@ def test_train_entry_runs_on_cpu():
     assert not state["params"][:, step.d_model_total:].any()
 
 
-@pytest.mark.parametrize("flags", [["--lint"]], ids=lambda f: f[0])
-def test_unported_flags_refuse(flags):
-    with pytest.raises(SystemExit, match="not ported"):
-        train.run(TINY + flags)
+@pytest.mark.parametrize("flags,passes", [
+    (["--lint"], True),
+    # a negative threshold feeds constant(-1): c_t < 0 is an R8 error
+    (["--lint", "--threshold", "-1"], False)], ids=["clean", "negative-c_t"])
+def test_lint_flag_audits_the_config(flags, passes, capsys):
+    """``--lint`` runs R6-R9 and the payload's R10 before the first step: a
+    clean config prints the pass line and trains, an R8 error aborts."""
+    if passes:
+        out = train.run(TINY + flags)
+        assert len(out["losses"]) == 4
+        assert "passes the static audit" in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit, match="static-audit error"):
+            train.run(TINY + flags)
+        assert "[lint R8/ERROR]" in capsys.readouterr().out
 
 
 def test_devices_flag_runs_on_cpu():
