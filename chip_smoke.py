@@ -80,9 +80,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       1e-4, x_hat and params up to boundary flips) and minitron-4b,
       stablelm-1.6b, qwen1.5-32b, musicgen-large and chameleon-34b at
       d_model 128, vocab 256 for 3 steps (losses within 1e-4);
-   l. the SSM family and the hybrid: mamba2-370m at full width and depth
-      (48 layers, d_model 1024, 32 SSM heads of 64, state 128, vocab
-      50,280), 8 nodes, and zamba2-7b at full width (d_model 3584, 112 SSM
+   l. the SSM family and the hybrid: mamba2-370m at full width (d_model
+      1024, 32 SSM heads of 64, state 128, vocab 50,280) cut to depth 12 of
+      48 (the smoke's time limit), 8 nodes, and zamba2-7b at full width (d_model 3584, 112 SSM
       heads, state 64, 32 attention heads, d_ff 14,336) cut to 12 layers,
       so that its shared attention block runs after layers 5 and 11, 3
       nodes; the main path's flags through the train entry: SignTopK
@@ -156,6 +156,19 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       ``train --lint`` on the reduced config for one step. Phases f, g and
       j hold every suite row's contract_status and bits_oracle (the convex
       and LM rows equal to the committed files');
+   p. the suite driver and the roofline (``launch/run.py``,
+      ``launch/dryrun.py``, ``launch/op_walk.py``): the kernels suite
+      (quick) through the driver into a temporary directory, then
+      ``--check-artifacts`` on it with no bad row; the roofline suite
+      through the driver, started in a process of its own before phase e
+      so that it runs beside e-o, which dry-runs qwen1.5-0.5b at
+      ``train_4k`` and ``decode_32k`` on ``meta`` over the reference's 16x16
+      grid (with ``--lint``), its terms printed; one sync step of the reduced float32 qwen1.5-0.5b trainer
+      (4 nodes, the kernel path) counted on the card and on ``meta``: dot
+      FLOPs, bytes and the kernel's closed-form charge equal; and, as
+      context, the full-width main path's FLOPs and bytes per step (phase
+      a's run, 3 more steps counted on the card by the cost walk) beside
+      phase a's measured s/step;
 4. one JSON line of per-kernel numbers, the card's name and power limit, and
    last the JSON result line.
 
@@ -217,6 +230,9 @@ CKPT_ARGS = MAIN_ARGS + ["--momentum", "0.9"]
 # the depth of 24 that phases 3b and 3i keep, to hold the smoke inside its
 # time limit (the main path, 3a and 3n, keeps all 24 layers)
 CUT_DEPTH = 8
+# the depth of 48 that 3l's mamba2-370m trainer keeps, for the same reason
+# (cut when phase 3p brought a call's total past 1,100 s)
+MAMBA2_DEPTH = 12
 # phase 3o: an omega certificate's f32 sums, card against CPU
 CERT_RTOL = 1e-6
 # phase 3o: --lint through the train entry on the reduced config, one step
@@ -849,8 +865,12 @@ class ArchRegistry:
 
 def sign_topk_bound_ms(rows) -> float:
     """SignTopK's byte bound at (rows, 1024) float32 in ensemble mode: the
-    diff read once, q and the per-tile scale written once."""
-    return (rows * 1024 * 8 + rows * 4) / HBM_BYTES_PER_S * 1e3
+    diff read once, q and the per-tile scale written once
+    (``kernels.sign_topk.work_bytes``, the closed form the cost walk
+    charges)."""
+    import torch
+    from repro_torch.kernels.sign_topk import work_bytes
+    return work_bytes(rows, torch.float32, False) / HBM_BYTES_PER_S * 1e3
 
 
 def sync_kernel_check(torch, t_check, spec):
@@ -985,11 +1005,10 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
         f"median {median(steady):.4f} s; allocator during the run "
         f"{ {k: alloc1[k] - alloc0[k] for k in ALLOC_KEYS} }")
     rows = sync_rec["tiles"]
-    elements = rows * BLOCK
     bound_ms = sign_topk_bound_ms(rows)
     log(f"moe trainer: SignTopK on the last sync's real diff ({rows}, "
         f"{BLOCK}) f32: {sync_rec['ms']:.4f} ms against the byte bound "
-        f"{bound_ms:.4f} ms ({(elements * 8 + rows * 4) / 1e9:.2f} GB at "
+        f"{bound_ms:.4f} ms ({bound_ms * HBM_BYTES_PER_S / 1e12:.2f} GB at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
         f"{100 * bound_ms / sync_rec['ms']:.1f}% of its speed); kernel == "
         f"plain version on every tile, max abs err {sync_rec['err']:.3e} "
@@ -1158,10 +1177,11 @@ class SharedLog:
 
 
 def phase_ssm(torch, dev, train, counts, zero_counts, read_counts):
-    """3l: mamba2-370m at full width and depth (8 nodes) and zamba2-7b at
-    full width cut to 12 layers (3 nodes) through the train entry, then
-    both at reduced width on the card against the CPU. Returns the SignTopK
-    record at each trainer's shape."""
+    """3l: mamba2-370m at full width cut to MAMBA2_DEPTH of its 48 layers
+    (8 nodes) and zamba2-7b at full width cut to 12 layers (3 nodes)
+    through the train entry, then both at reduced width on the card
+    against the CPU. Returns the SignTopK record at each trainer's
+    shape."""
     import dataclasses
     import functools
     import numpy as np
@@ -1245,10 +1265,14 @@ def phase_ssm(torch, dev, train, counts, zero_counts, read_counts):
                      "max_abs_err": rec["err"], "peak_gb": peak}
         return result, steady
 
-    # ---- mamba2-370m at full width and depth, 8 nodes
+    # ---- mamba2-370m at full width, cut to MAMBA2_DEPTH of 48 layers, 8
+    # nodes
     ssm_args = with_arg(with_arg(MAIN_ARGS, "--arch", "mamba2-370m"),
                         "--nodes", "8")
-    result, steady = trainer("mamba2", ssm_args, 48, 0)
+    depth = ArchRegistry(lambda c: dataclasses.replace(
+        c, n_layers=MAMBA2_DEPTH))
+    with depth:
+        result, steady = trainer("mamba2", ssm_args, MAMBA2_DEPTH, 0)
     del result
     torch.cuda.empty_cache()
     # where a step goes: the profiler's host cost grows with its events
@@ -2175,6 +2199,141 @@ def phase_audits(torch, dev, train, counts, zero_counts, read_counts, D):
     return {"coverage": m1, "attributes": m3}
 
 
+def start_roofline(tmp: str) -> subprocess.Popen:
+    """Phase 3p's roofline suite through the driver, started in a process
+    of its own (its two dry runs walk on ``meta``, on the host's other
+    cores) so that it runs beside phases 3e-3o; its working directory is
+    ``tmp``, where its dry-run rows and its document go. It is killed at
+    exit if it is still running."""
+    import atexit
+    env = dict(os.environ, PYTHONPATH=SRC)
+    with open(os.path.join(tmp, "roofline.log"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.run", "--suite",
+             "roofline", "--out-dir", os.path.join(tmp, "suites")],
+            cwd=tmp, env=env, stdout=out, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(),
+                                                     proc.wait()))
+    return proc
+
+
+def phase_driver(torch, train, counts, zero_counts, read_counts,
+                 main_counted, card, roof, roof_tmp):
+    """Phase 3p: the suite driver, the roofline suite (``roof``, the
+    process :func:`start_roofline` started in ``roof_tmp``) and the cost
+    walk (see the module doc)."""
+    import contextlib
+    import dataclasses
+    import io
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.dist.sparq_dist import build_sparq
+    from repro_torch.kernels.sign_topk import sign_topk_blocks
+    from repro_torch.launch import op_walk
+    from repro_torch.launch import run as run_mod
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the kernels suite through the driver, then its static check
+        out_dir = os.path.join(tmp, "suites")
+        zero_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run_mod.main(["--suite", "kernels", "--out-dir", out_dir])
+        counts["driver_kernels"] = read_counts()
+        if rc or min(counts["driver_kernels"].values()) == 0:
+            raise AssertionError(f"driver --suite kernels: exit {rc}, "
+                                 f"launches {counts['driver_kernels']}\n"
+                                 f"{buf.getvalue()}")
+        for ln in buf.getvalue().splitlines():
+            log(f"driver: {ln}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bad = run_mod.check_artifacts([out_dir])
+        log(f"driver --check-artifacts: {buf.getvalue().strip()}")
+        if bad:
+            raise AssertionError(f"driver --check-artifacts: {bad} bad "
+                                 f"row(s)")
+    # the roofline suite, started before 3e: the dry runs' rows in a fresh
+    # directory (they live under the working directory's runs/dryrun)
+    t1 = time.perf_counter()
+    rc = roof.wait(timeout=600)
+    with open(os.path.join(roof_tmp, "roofline.log")) as f:
+        text = f.read()
+    with open(os.path.join(roof_tmp, "suites", "suite_roofline.json")) as f:
+        rows = json.load(f)["rows"]
+    names = sorted(r["name"] for r in rows)
+    want = ["roofline_qwen1.5-0.5b_decode_32k_16x16",
+            "roofline_qwen1.5-0.5b_train_4k_16x16"]
+    if rc or names != want or any(r["lint_errors"] for r in rows):
+        raise AssertionError(f"driver --suite roofline: exit {rc}, rows "
+                             f"{names}\n{text}")
+    for r in sorted(rows, key=lambda r: r["name"]):
+        log(f"roofline {r['name']}: compute {r['compute_s']} s, memory "
+            f"{r['memory_s']} s, collective {r['collective_s']} s "
+            f"({r['dominant']}); dot FLOPs/rank "
+            f"{r['dot_flops_per_rank']:.6e}, bytes/rank "
+            f"{r['hbm_bytes_per_rank']:.6e}, collective bytes/rank "
+            f"{r['collective_bytes_per_rank']:.6e}; watermark "
+            f"{r['peak_hbm_bytes']} B; walk {r['walk_seconds']} s; lint "
+            f"errors {r['lint_errors']}")
+    log(f"roofline suite: {time.perf_counter() - t1:.1f} s of waiting in "
+        f"this phase (it ran beside 3e-3o)")
+    # one sync step of the reduced trainer, counted on the card and on meta
+    t1 = time.perf_counter()
+    cfg, dcfg = train.configs(["--reduced", "--nodes", "4", "--use-kernel",
+                               "--H", "1", "--device", "cuda"])
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=128,
+                         batch_per_node=2, n_nodes=4, seed=0)
+    batch = {k: torch.as_tensor(v, dtype=torch.int32)
+             for k, v in pipe.global_batch(0).items()}
+    walks = {}
+    for where in ("cuda", "meta"):
+        init_fn, step, _ = build_sparq(cfg, dcfg, device=where)
+        state = init_fn() if where == "cuda" else init_fn.zero_state()
+        b = batch if where == "cuda" else {
+            k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in batch.items()}
+        before = sign_topk_blocks.launches
+        with op_walk.OpWalk(where) as w:
+            step(state, b)
+            if where == "cuda":
+                torch.cuda.synchronize()
+        launched = sign_topk_blocks.launches - before
+        # a comparison, not a path: the count is restored
+        sign_topk_blocks.launches = before
+        walks[where] = (w.result(), launched)
+        del state
+    (card_w, card_n), (meta_w, meta_n) = walks["cuda"], walks["meta"]
+    for key in ("dot_flops", "hbm_bytes", "kernels", "collective_bytes"):
+        if card_w[key] != meta_w[key]:
+            raise AssertionError(f"reduced step: {key} {card_w[key]} on the "
+                                 f"card, {meta_w[key]} on meta")
+    if card_n != 1 or meta_n != 0 or \
+            card_w["kernels"]["sign_topk"]["launches"] != 1:
+        raise AssertionError(f"reduced step: {card_n} launches on the card, "
+                             f"{meta_n} on meta, charges "
+                             f"{card_w['kernels']}")
+    log(f"reduced step counted on the card == on meta: dot FLOPs "
+        f"{card_w['dot_flops']}, bytes {card_w['hbm_bytes']}, SignTopK "
+        f"charged {card_w['kernels']['sign_topk']} both times, "
+        f"{card_w['ops']} / {meta_w['ops']} operations; one launch on the "
+        f"card (restored) ({time.perf_counter() - t1:.1f} s)")
+    torch.cuda.empty_cache()
+    # context, not a gate: the main path's counted work per step (phase
+    # a's steps 10..12, one sync) beside phase a's measured time
+    flops, nbytes = main_counted["dot_flops"], main_counted["hbm_bytes"]
+    sec = main_counted["s_per_step"]
+    log(f"main path counted on the card (steps 10-12, one sync): "
+        f"{flops:.6e} dot FLOPs and {nbytes:.6e} bytes per step; phase a's "
+        f"median {sec:.4f} s/step -> {flops / sec / 1e12:.3f} TFLOP/s "
+        f"({100 * flops / sec / PEAK_FLOPS_BF16:.2f}% of the bf16 peak) "
+        f"and {nbytes / sec / 1e9:.1f} GB/s ({100 * nbytes / sec / HBM_BW:.2f}"
+        f"% of HBM3) on {card}; SignTopK charged "
+        f"{main_counted['kernels']}")
+    log(f"phase 3p: {time.perf_counter() - t0:.1f} s")
+
+
 def phase_shard(torch, dev, train, counts, zero_counts, read_counts,
                 main_rec):
     """Phase 3n: the sharded engine on the one card (see the module doc);
@@ -2595,8 +2754,11 @@ def main() -> int:
                                              build_sparq)
     from repro_torch.kernels import parity
     from repro_torch.kernels.qsgd import qsgd_blocks, qsgd_blocks_plain
+    from repro_torch.kernels.qsgd import work_bytes as qsgd_work_bytes
     from repro_torch.kernels.sign_topk import (BLOCK, sign_topk_blocks,
                                                sign_topk_blocks_plain)
+    from repro_torch.kernels.sign_topk import \
+        work_bytes as sign_topk_work_bytes
     from repro_torch.launch import (bench_kernels, convex_bits, faults_bits,
                                     topology_bits, train)
     from repro_torch.models.transformer import init_params, param_shapes
@@ -2664,7 +2826,8 @@ def main() -> int:
     plain_ms = time_ms(torch, plain_full, 2)
     topk_ms = time_ms(torch, lambda: torch.topk(x.abs(), k_b, dim=1), 3)
     elements = rows * BLOCK
-    bytes_moved = elements * (4 + 4) + rows * 4   # diff in; q and scales out
+    # diff in; q and scales out
+    bytes_moved = sign_topk_work_bytes(rows, torch.float32, False)
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = max(elements * SIGN_TOPK_INT_OPS / INT32_OPS_PER_S,
                  elements * SIGN_TOPK_F32_OPS / F32_OPS_PER_S) * 1e3
@@ -2712,7 +2875,7 @@ def main() -> int:
         for lo in range(0, rows, PLAIN_ROWS):
             qsgd_blocks_plain(x[lo:lo + PLAIN_ROWS], u[lo:lo + PLAIN_ROWS], 16)
     qsgd_plain_ms = time_ms(torch, qsgd_plain_full, 2)
-    q_bytes = elements * (4 + 4 + 4)                 # x and u in; out
+    q_bytes = qsgd_work_bytes(rows, torch.float32)   # x and u in; out
     q_bound_ms = q_bytes / HBM_BYTES_PER_S * 1e3
     q_ops_ms = elements * QSGD_F32_OPS / F32_OPS_PER_S * 1e3
     log(f"qsgd at ({rows}, {BLOCK}) f32, s=16:")
@@ -2858,6 +3021,17 @@ def main() -> int:
         f"{launches_per_step:.0f} kernels/step; against the steady "
         f"{steady:.4f} s/step the device is idle {100 * idle:.1f}% of the "
         f"time")
+    # phase 3p's context: 3 more steps (t = 9..11, one sync) under the cost
+    # walk, which slows the host; their work counted, not their time
+    from repro_torch.launch import op_walk
+    with op_walk.OpWalk("cuda") as walk:
+        for i in range(9, 12):
+            state, _ = step(state, pipe.global_batch(i))
+        torch.cuda.synchronize()
+    main_counted = {"dot_flops": walk.dot_flops / 3,
+                    "hbm_bytes": walk.hbm_bytes / 3,
+                    "kernels": walk.kernels,
+                    "s_per_step": median(s_step[1:])}
     del result, state, step
     torch.cuda.empty_cache()
 
@@ -3068,6 +3242,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 3d: {time.perf_counter() - t_p:.1f} s")
 
+    # phase 3p's roofline suite, in a process of its own beside 3e-3o
+    roof_dir = tempfile.TemporaryDirectory()
+    roof = start_roofline(roof_dir.name)
     # ------------------------------------------------ 3e. the kernel suite
     t_p = time.perf_counter()
     zero_counts()
@@ -3344,6 +3521,10 @@ def main() -> int:
     audit_rec = phase_audits(torch, dev, train, counts, zero_counts,
                              read_counts, D)
     log(f"phase 3o: {time.perf_counter() - t0:.1f} s")
+    # ----------------------------------- 3p. the suite driver and roofline
+    phase_driver(torch, train, counts, zero_counts, read_counts,
+                 main_counted, card, roof, roof_dir.name)
+    roof_dir.cleanup()
 
     # ------------------------------------------------------------- 4. report
     def by_path(name):

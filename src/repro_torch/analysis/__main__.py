@@ -7,9 +7,9 @@
 contracts (R6-R9, ``contracts.committed_configs``) and runs the bits oracle
 (R10) on its two fixtures; ``--kernels`` runs K1 and K3 over
 ``kernels/csrc`` (the source legs on any device; on ``cuda`` also the card
-legs, which build the kernels). With neither flag both run. Findings print
-one per line; ``--out`` writes the report as JSON. Exit status 0 iff no
-unsuppressed error.
+legs, which build the kernels) and K4 over the flat engine's sources. With
+neither flag both run. Findings print one per line; ``--out`` writes the
+report as JSON. Exit status 0 iff no unsuppressed error.
 """
 from __future__ import annotations
 
@@ -58,7 +58,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "R10 bits oracle")
     ap.add_argument("--kernels", action="store_true",
                     help="K1 (grid coverage) and K3 (on-chip budget) over "
-                         "kernels/csrc; the card legs on cuda")
+                         "kernels/csrc, the card legs on cuda; K4 (dense "
+                         "gossip) over the flat engine")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a GPU raises")
     ap.add_argument("--out", default="",
@@ -76,8 +77,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     reports: List[Report] = []
     if args.kernels or both:
-        print("[analysis] auditing the CUDA kernels (K1, K3)", flush=True)
+        from repro_torch.analysis import kernel_lint
+        print("[analysis] auditing the CUDA kernels (K1, K3) and the dense "
+              "gossip (K4)", flush=True)
         reports.append(audit_kernels(dev))
+        gossip = Report(program="dist/dense_gossip")
+        f4, m4 = kernel_lint.lint_dense_gossip(program=gossip.program)
+        gossip.extend(f4)
+        gossip.meta.update(m4)
+        reports.append(gossip)
     if args.contracts or both:
         from repro_torch.analysis import comm_lint, contracts
         print("[analysis] certifying committed configs (R6-R9) and the "

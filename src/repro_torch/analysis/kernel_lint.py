@@ -1,5 +1,6 @@
-"""Kernel-contract lint of the hand-written CUDA kernels, K1 and K3
-(counterpart of ``repro/analysis/kernel_lint.py``'s K1 and K3).
+"""Kernel-contract lint of the hand-written CUDA kernels, K1 and K3, and
+the dense-gossip tripwire K4 (counterpart of
+``repro/analysis/kernel_lint.py``).
 
 The reference captures each ``pallas_call``'s grid and BlockSpecs and checks
 them abstractly. A CUDA kernel has no BlockSpec: its coverage is the
@@ -30,6 +31,10 @@ rule has a leg that reads the source on the CPU and a leg that asks the card.
 
 Launches made here bypass the wrappers, so the wrappers' launch counts stay
 those of the paths they serve.
+
+* **K4** (:func:`lint_dense_gossip`) reads the package's Python sources:
+  the dense ``(n, n)`` and ``(R, n, n)`` mixing work reachable from the flat
+  engine, each site a warning with its O(n^2) ceiling.
 """
 from __future__ import annotations
 
@@ -461,3 +466,150 @@ def lint_budget_card(csrc: Path = CSRC, probes: Sequence[Probe] = PROBES, *,
                           f"per thread (a register spill)", loc,
                     severity=WARNING))
     return out, meta
+
+
+# ----------------------------------------------------------------------- K4
+
+PACKAGE = Path(__file__).resolve().parents[1]
+_DENSE_CONTRACTIONS = ("tensordot", "einsum", "matmul")
+_DENSE_MAKERS = ("tensor", "as_tensor", "asarray")
+_DENSE_SOURCES = ("ws", "w")   # GossipPlan.ws (R, n, n), Topology.w (n, n)
+# a contraction counts as mixing work only inside the gossip modules: a
+# transformer layer's x @ W is model compute, not an (n, n) consensus term
+_GOSSIP_MODULES = ("repro_torch.core.sparq", "repro_torch.core.topology",
+                   "repro_torch.dist.sparq_dist")
+_DIST_ROOT = "repro_torch.dist.sparq_dist"
+_CEILING_N = 10_000            # the n the finding's message quotes
+
+
+@dataclasses.dataclass
+class _Fn:
+    module: str
+    node: ast.AST
+    path: Path
+    scope: Dict[str, str]      # names visible in the body -> qualified name
+
+
+def _module_name(path: Path, root: Path) -> str:
+    rel = path.relative_to(root.parent).with_suffix("")
+    parts = list(rel.parts)
+    if parts[-1] == "__init__":
+        parts.pop()
+    return ".".join(parts)
+
+
+def _functions(root: Path) -> Dict[str, _Fn]:
+    """Every ``def`` of the package's sources by qualified name
+    (``module.outer.inner``), each with the names its body can call: the
+    ``def``s of its module and of its enclosing functions, and the names
+    its module imports from the package."""
+    fns: Dict[str, _Fn] = {}
+    for path in sorted(root.rglob("*.py")):
+        module = _module_name(path, root)
+        tree = ast.parse(path.read_text(), filename=str(path))
+        names: Dict[str, str] = {}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module and \
+                    node.level == 0:
+                for a in node.names:
+                    names[a.asname or a.name] = f"{node.module}.{a.name}"
+            elif isinstance(node, ast.Import):
+                for a in node.names:
+                    names[a.asname or a.name.split(".")[0]] = \
+                        a.name if a.asname else a.name.split(".")[0]
+
+        def visit(body, prefix: str, scope: Dict[str, str]) -> None:
+            defs = [n for n in body if isinstance(
+                n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+            scope = {**scope, **{d.name: f"{prefix}.{d.name}" for d in defs}}
+            for d in defs:
+                q = f"{prefix}.{d.name}"
+                inner = [n for n in ast.walk(d) if n is not d and isinstance(
+                    n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+                fns[q] = _Fn(module, d, path, scope)
+                # nested defs see the enclosing function's scope
+                visit([n for n in d.body if n in inner], q, scope)
+        visit(tree.body, module, names)
+    return fns
+
+
+def _callees(fn: _Fn, fns: Dict[str, _Fn]) -> List[str]:
+    """The package functions ``fn`` calls by name or as ``module.name``."""
+    out = []
+    for sub in ast.walk(fn.node):
+        if not isinstance(sub, ast.Call):
+            continue
+        f = sub.func
+        if isinstance(f, ast.Name):
+            q = fn.scope.get(f.id)
+        elif isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name) \
+                and f.value.id in fn.scope:
+            q = f"{fn.scope[f.value.id]}.{f.attr}"
+        else:
+            q = None
+        if q in fns:
+            out.append(q)
+    return out
+
+
+def _dist_reachable(fns: Dict[str, _Fn]) -> List[str]:
+    """The functions reachable from the flat engine's module: its builder
+    and the step's closures, and what they call."""
+    seen = {q for q, fn in fns.items() if fn.module == _DIST_ROOT}
+    frontier = list(seen)
+    while frontier:
+        for callee in _callees(fns[frontier.pop()], fns):
+            if callee not in seen:
+                seen.add(callee)
+                frontier.append(callee)
+    return sorted(seen)
+
+
+def lint_dense_gossip(root: Path = PACKAGE, *, program: str
+                      ) -> Tuple[List[Finding], Dict[str, Any]]:
+    """K4: tag the dense mixing work reachable from the flat engine
+    (``repro_torch.dist.sparq_dist``), each site a WARNING with the O(n^2)
+    ceiling: a ``tensordot``, ``einsum``, ``matmul`` or ``@`` inside the
+    gossip modules, and a ``tensor``, ``as_tensor`` or ``asarray`` of a
+    ``.ws`` or ``.w`` attribute anywhere. The reference reads reachability
+    off its call graph (``analysis/callgraph.py``, not applicable as a
+    whole); here a small resolver over the package's sources follows the
+    calls by name (the ``def``s in scope and the package's imports), which
+    is enough for the engine's closures."""
+    root = Path(root)
+    fns = _functions(root)
+    reachable = _dist_reachable(fns)
+    out: List[Finding] = []
+    sites: set = set()
+    gib = 4 * _CEILING_N * _CEILING_N / 2**30
+    for q in reachable:
+        fn = fns[q]
+        gossip = fn.module in _GOSSIP_MODULES
+        for sub in ast.walk(fn.node):
+            desc = None
+            call_attr = (sub.func.attr if isinstance(sub, ast.Call) and
+                         isinstance(sub.func, ast.Attribute) else None)
+            if gossip and call_attr in _DENSE_CONTRACTIONS:
+                desc = f"dense {call_attr} contraction"
+            elif gossip and isinstance(sub, ast.BinOp) and \
+                    isinstance(sub.op, ast.MatMult):
+                desc = "dense @ contraction"
+            elif call_attr in _DENSE_MAKERS and sub.args and \
+                    isinstance(sub.args[0], ast.Attribute) and \
+                    sub.args[0].attr in _DENSE_SOURCES:
+                desc = (f"dense mixing-matrix materialization "
+                        f"(.{sub.args[0].attr})")
+            if desc is None:
+                continue
+            key = (fn.path, sub.lineno)
+            if key in sites:
+                continue
+            sites.add(key)
+            rel = fn.path.relative_to(root.parent).as_posix()
+            out.append(finding(
+                "K4", f"{desc} in {fn.node.name}() is reachable from the "
+                      f"flat engine's step: O(n^2) in the ensemble size; at "
+                      f"n={_CEILING_N} one (n, n) float32 mixing matrix is "
+                      f"{gib:.1f} GiB per round (sparse gossip would lift "
+                      f"the ceiling)", f"{program}:{rel}:{sub.lineno}"))
+    return out, {"dist_reachable": len(reachable), "dense_sites": len(sites)}

@@ -8,12 +8,12 @@ rule says how it stands in the port (``Rule.port``):
 * **ported** — R6-R10 lint the algorithm's configuration, which the port
   shares with the reference (:mod:`repro_torch.analysis.contracts`,
   :mod:`repro_torch.analysis.comm_lint`); K1 and K3 certify the
-  hand-written CUDA kernels (:mod:`repro_torch.analysis.kernel_lint`).
+  hand-written CUDA kernels and K4 tags the flat engine's dense mixing
+  work (:mod:`repro_torch.analysis.kernel_lint`).
 * **not applicable** — the rest read what only JAX makes: compiled XLA
   programs and their aliasing, jaxprs, traces, Pallas lowering flags, JAX
   source and GSPMD's partitioning. The port runs eager PyTorch and
   launches its kernels through ``ctypes``; none of those objects exists.
-* **queued** — K4 (dense gossip materialization) waits in ROADMAP.md.
 
 Suppressions are explicit: a ``{rule_id: reason}`` mapping (or
 ``{rule_id: {"match": substring, "reason": ...}}``) marks matching findings
@@ -30,7 +30,6 @@ WARNING = "warning"
 INFO = "info"
 
 PORTED = "ported"
-QUEUED = "queued: ROADMAP.md A.5 (sparse gossip's tripwire)"
 _XLA = "not applicable: reads the compiled XLA module, which the port has not"
 _JAXPR = "not applicable: reads jaxprs and JAX's trace cache"
 _SOURCE = "not applicable: lints JAX source (traced code, jit arguments)"
@@ -43,7 +42,7 @@ class Rule:
     title: str
     severity: str
     contract: str
-    port: str = PORTED     # ported, queued, or why it does not apply
+    port: str = PORTED     # ported, or why it does not apply
 
 
 RULES: Dict[str, Rule] = {r.rule_id: r for r in (
@@ -105,7 +104,7 @@ RULES: Dict[str, Rule] = {r.rule_id: r for r in (
          "memory is a warning"),
     Rule("K4", "dense-gossip-materialization", WARNING,
          "dense (n, n) mixing-matrix materializations reachable from the "
-         "dist step are tagged with the O(n^2) scale ceiling", QUEUED),
+         "dist step are tagged with the O(n^2) scale ceiling"),
     Rule("P1", "sharding-spec-drift", ERROR,
          "every entry parameter's HLO sharding matches the declared spec",
          _GSPMD + " (the port places its rows and blocks itself)"),

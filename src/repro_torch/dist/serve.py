@@ -3,11 +3,12 @@ cached decode (counterpart of ``repro/dist/serve.py``).
 
 Both builders take a mesh and return ``(step_fn, shardings_fn)``, as the
 reference's do. ``mesh`` is a ``("data", "model")`` ``DeviceMesh``, a
-device (a one-device mesh), or a mapping of axis sizes (an abstract mesh:
-``shardings_fn`` only). ``shardings_fn`` maps shape trees (from
-:func:`serve_shapes`) to :class:`NamedSharding` trees, each leaf placed as
-the reference places it: parameters over ``model`` only by the train view's
-rules (with ``embed_mode``'s embedding rewrite), cache leaves by
+device (a one-device mesh; ``meta`` for shapes without memory), or a
+mapping of axis sizes (an abstract mesh: ``shardings_fn`` only).
+``shardings_fn`` maps shape trees (from :func:`serve_shapes`) to
+:class:`NamedSharding` trees, each leaf placed as the reference places it:
+parameters over ``model`` only by the train view's rules (with
+``embed_mode``'s embedding rewrite), cache leaves by
 ``sharding.cache_specs`` (``cache_mode``), the batch over ``data`` when it
 divides.
 
@@ -30,7 +31,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_or_meta
 from repro_torch.dist import sharding as sh
 from repro_torch.models import parallel as tpm
 from repro_torch.dist.comm import GroupComm
@@ -93,11 +94,10 @@ class _Mesh:
             self.sizes = sh.axis_sizes(mesh)
         elif hasattr(mesh, "mesh_dim_names"):
             self.sizes = sh.axis_sizes(mesh)
-            self.device = resolve_device(
-                "cpu" if mesh.device_type == "cpu" else "cuda")
+            self.device = resolve_or_meta(mesh.device_type)
             self.data_index = sh.coordinates(mesh).get("data", 0)
         else:
-            self.device = resolve_device(mesh)
+            self.device = resolve_or_meta(mesh)
             self.sizes = {"data": 1, "model": 1}
 
     def checked(self) -> torch.device:
@@ -110,10 +110,14 @@ class _Mesh:
     @property
     def tp(self) -> Optional[tpm.TP]:
         """The ``model`` axis's :class:`tp.TP` (made on first use), or None
-        with one rank on it."""
+        with one rank on it. A mesh with a ``collectives(axis)`` method
+        (the dry run's counted rank) hands in its own."""
         if self.sizes.get("model", 1) > 1 and self._tp is None:
-            self._tp = tpm.TP(GroupComm(self.mesh.get_group("model"),
-                                        self.checked()))
+            if hasattr(self.mesh, "collectives"):
+                comm = self.mesh.collectives("model")
+            else:
+                comm = GroupComm(self.mesh.get_group("model"), self.checked())
+            self._tp = tpm.TP(comm)
         return self._tp
 
     def check_blocks(self, cfg: ModelConfig, params: Any, embed_mode: str

@@ -90,7 +90,7 @@ from repro_torch.core.sparq import gossip_mix, sync_message_bits, trigger_mask
 from repro_torch.core.topology import (GossipPlan, Topology, circulant_row,
                                        make_plan)
 from repro_torch.core.triggers import ThresholdSchedule, zero
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_or_meta
 from repro_torch.dist.comm import NodeComm
 from repro_torch.dist.sharding import fsdp_split
 from repro_torch.kernels import ops as kernel_ops
@@ -285,7 +285,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
                 device: Union[str, torch.device, None] = "cuda",
                 on_sync: Optional[Callable[[torch.Tensor, Dict[str, Any]],
                                            None]] = None,
-                mesh: Any = None
+                mesh: Any = None, comm: Optional[NodeComm] = None
                 ) -> Tuple[Callable[..., State], Callable, Dict[str, Any]]:
     """Build the flat-buffer engine for one model on one device, or on this
     rank's device of a ``(node, fsdp, model)`` ``DeviceMesh``.
@@ -299,7 +299,9 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
       ``params_from_jax``);
     * ``train_step(state, batch) -> (state, metrics)``: one Algorithm 1
       step, updating ``state`` in place; ``batch`` holds ``(n, per_node,
-      seq)`` integer arrays or tensors ``tokens`` and ``labels``;
+      seq)`` integer arrays or tensors ``labels`` and ``tokens``, or, for
+      the audio and VLM configs, ``labels`` and float ``(n, per_node, seq,
+      d_model)`` frontend ``embeds``;
     * ``pshape``: the single-node parameter tree as nested dicts of shapes.
 
     The ensemble size is ``n = lcm(cfg.n_nodes, node)`` (``cfg.n_nodes``
@@ -315,9 +317,16 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     triggers ``trig`` of all n nodes and the rank's ``rows``.
     ``train_step.exchange_s`` lists each sync's seconds in the row
     exchanges.
+
+    ``device="meta"`` builds the engine on shapes without memory (the dry
+    run, :mod:`repro_torch.launch.dryrun`): start from
+    ``init_fn.zero_state()``, as x^0 is not drawn there. ``comm``, when
+    given, stands in for ``NodeComm(mesh, device)`` with the same
+    attributes and collectives (the dry run's counting stand-in for one
+    rank of a mesh).
     """
-    dev = resolve_device(device)
-    comm = NodeComm(mesh, dev)
+    dev = resolve_or_meta(device)
+    comm = NodeComm(mesh, dev) if comm is None else comm
     n = math.lcm(int(cfg.n_nodes), comm.node_ax)
     m = n // comm.node_ax
     lo = comm.node_index * m
@@ -391,7 +400,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
         """Per-node loss of the rank's rows; their gradients accumulate into
         ``grads``, summed over the fsdp group."""
         losses = torch.zeros((m,), dtype=torch.float32, device=dev)
-        per = batch["tokens"].shape[1]
+        per = batch["labels"].shape[1]
         if per % mbs:
             raise ValueError(f"batch_per_node {per} is not a multiple of "
                              f"microbatches {mbs}")
@@ -530,9 +539,11 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
             raise ValueError(f"batch leading dims {sorted(lead)} != "
                              f"ensemble size {n} (or this rank's {m} rows)")
         rows = slice(lo, lo + m) if lead == {n} else slice(None)
-        batch = {k: torch.as_tensor(v)[rows].to(device=dev,
-                                                 dtype=torch.int64)
-                 for k, v in batch.items()}
+        # integer tokens and labels as int64; the audio and VLM configs'
+        # frontend embeds keep their float dtype
+        batch = {k: torch.as_tensor(v)[rows].to(
+            device=dev, dtype=None if k == "embeds" else torch.int64)
+            for k, v in batch.items()}
         params = state["params"]
         grads = torch.zeros_like(params)
         losses = node_losses_grads(params, batch, grads)

@@ -7,7 +7,15 @@ option and no environment override: the choice follows the tensors' device.
 * CPU tensors run the plain PyTorch version of the kernel's math.
 * CUDA tensors launch the hand-written kernel. A missing ``nvcc``, a failed
   build or a refused launch raises; nothing falls back to the plain version.
+* ``meta`` tensors (shapes without memory: the dry run,
+  :mod:`repro_torch.launch.dryrun`) get ``meta`` outputs of the kernel's
+  shapes; nothing runs, neither the kernel nor the plain version.
 * Any other device raises.
+
+Each launch, and each ``meta`` call, charges the kernel's closed-form
+bytes (the wrapper module's ``work_bytes``) to the cost walks in
+:data:`COST_WALKS` (:class:`repro_torch.launch.op_walk.OpWalk`): the
+dispatcher never sees a ``ctypes`` launch.
 
 Build: every ``csrc/*.cu`` is compiled at first use by ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface: one
@@ -34,7 +42,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -168,6 +176,24 @@ def attributes(source: str, entry: str) -> Dict[str, int]:
     return {"num_regs": regs.value, "shared_bytes": shared.value,
             "local_bytes": local.value, "max_threads": threads.value,
             "blocks_per_sm": blocks.value}
+
+
+# the active cost walks; an OpWalk adds itself while it is entered
+COST_WALKS: List = []
+
+
+def charge(name: str, nbytes: int) -> None:
+    """One launch of kernel ``name`` moving ``nbytes``, told to every
+    active cost walk."""
+    for w in COST_WALKS:
+        w.charge_kernel(name, nbytes)
+
+
+def on_meta(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when every given tensor is a ``meta`` tensor (give ``meta``
+    outputs, run nothing); ``None`` entries are skipped."""
+    devs = {t.device.type for t in tensors if t is not None}
+    return devs == {"meta"}
 
 
 def uses_kernel(*tensors: Optional[torch.Tensor]) -> bool:

@@ -9,8 +9,10 @@ input, as in the reference, so one ``u`` gives one answer.
 
 :func:`qsgd_blocks` launches the kernel for CUDA tensors and runs
 :func:`qsgd_blocks_plain` for CPU tensors; it never picks the plain version
-for a CUDA tensor. ``qsgd_blocks.launches`` counts kernel launches and
-nothing else.
+for a CUDA tensor. ``meta`` tensors get a ``meta`` output and run nothing.
+``qsgd_blocks.launches`` counts kernel launches and nothing else. A launch
+and a ``meta`` call charge :func:`work_bytes` to the cost walks
+(``kernels.charge``).
 """
 from __future__ import annotations
 
@@ -68,7 +70,17 @@ def attributes(dtype: torch.dtype) -> Dict[str, int]:
     return kernels.attributes("qsgd", ENTRIES[dtype])
 
 
-def _launch(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
+def work_bytes(n_tiles: int, dtype: torch.dtype) -> int:
+    """The bytes one launch over ``n_tiles`` tiles must move: x and the
+    float32 noise u read once, the output written once. At float32:
+    ``n_tiles * 1024 * 12``."""
+    esize = dtype.itemsize
+    return n_tiles * BLOCK * (2 * esize + 4)
+
+
+def _output(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The output of the kernel on checked inputs, allocated and not
+    written, and its charge to the cost walks."""
     if x.dtype not in ENTRIES:
         raise TypeError(f"qsgd kernel takes float32 or bfloat16 x, got "
                         f"{x.dtype}")
@@ -77,7 +89,13 @@ def _launch(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
     for name, t in (("x", x), ("u", u)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    out = torch.empty_like(x)
+    if x.shape[0]:
+        kernels.charge("qsgd", work_bytes(x.shape[0], x.dtype))
+    return torch.empty_like(x)
+
+
+def _launch(x: torch.Tensor, u: torch.Tensor, s: int) -> torch.Tensor:
+    out = _output(x, u)
     n = x.shape[0]
     if n == 0:
         return out
@@ -105,7 +123,11 @@ def qsgd_blocks(x: torch.Tensor, u: torch.Tensor, s: int = 16
     """x: (n_blocks, BLOCK) float32 or bfloat16; u: (n_blocks, BLOCK)
     uniform [0, 1) noise, float32 on the card. Returns the quantized x in
     x's dtype (``qsgd.py:41``). CUDA tensors launch the kernel; CPU tensors
-    run :func:`qsgd_blocks_plain`."""
+    run :func:`qsgd_blocks_plain`; ``meta`` tensors get a ``meta``
+    output."""
+    if kernels.on_meta(x, u):
+        _check(x, u, s)
+        return _output(x, u)
     if kernels.uses_kernel(x, u):
         _check(x, u, s)
         return _launch(x, u, int(s))

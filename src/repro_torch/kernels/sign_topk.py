@@ -10,8 +10,10 @@ tiles stay silent.
 
 :func:`sign_topk_blocks` launches the kernel for CUDA tensors and runs the
 plain version (:func:`sign_topk_blocks_plain`) for CPU tensors; it never
-picks the plain version for a CUDA tensor. ``sign_topk_blocks.launches`` counts kernel
-launches and nothing else.
+picks the plain version for a CUDA tensor. ``meta`` tensors get ``meta``
+outputs and run nothing. ``sign_topk_blocks.launches`` counts kernel
+launches and nothing else. A launch and a ``meta`` call charge
+:func:`work_bytes` to the cost walks (``kernels.charge``).
 """
 from __future__ import annotations
 
@@ -107,14 +109,36 @@ def attributes(dtype: torch.dtype) -> Dict[str, int]:
     return kernels.attributes("sign_topk", ENTRIES[dtype])
 
 
-def _launch(x_half: torch.Tensor, x_hat: Optional[torch.Tensor], trig: float,
-            k_b: int) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                               torch.Tensor]:
+def work_bytes(n_tiles: int, dtype: torch.dtype, with_x_hat: bool) -> int:
+    """The bytes one launch over ``n_tiles`` tiles must move: x_half (and
+    x_hat) read once, q (and x_hat_new) and the per-tile float32 scale
+    written once. In ensemble mode at float32: ``n_tiles * 1024 * 8 +
+    n_tiles * 4``."""
+    planes = 4 if with_x_hat else 2
+    esize = dtype.itemsize
+    return n_tiles * BLOCK * esize * planes + n_tiles * 4
+
+
+def _outputs(x_half: torch.Tensor, x_hat: Optional[torch.Tensor], k_b: int
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """The outputs of the kernel on checked inputs, allocated and not
+    written, and its charge to the cost walks."""
     _check_cuda_inputs(x_half, x_hat, k_b)
     n = x_half.shape[0]
     q = torch.empty_like(x_half)
     x_hat_new = None if x_hat is None else torch.empty_like(x_half)
     scale = torch.empty((n,), dtype=torch.float32, device=x_half.device)
+    if n:
+        kernels.charge("sign_topk",
+                       work_bytes(n, x_half.dtype, x_hat is not None))
+    return q, x_hat_new, scale
+
+
+def _launch(x_half: torch.Tensor, x_hat: Optional[torch.Tensor], trig: float,
+            k_b: int) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                               torch.Tensor]:
+    q, x_hat_new, scale = _outputs(x_half, x_hat, k_b)
+    n = x_half.shape[0]
     if n == 0:
         return q, x_hat_new, scale
     lib, fn = entry(x_half.dtype)
@@ -156,7 +180,10 @@ def sign_topk_blocks(x_half: torch.Tensor, x_hat: Optional[torch.Tensor],
     (``sign_topk.py:122``). ``x_hat=None`` is the ensemble mode: diff is
     x_half itself and x_hat_new is None (no zero x_hat is allocated and no
     x_hat_new is written). CUDA tensors launch the kernel; CPU tensors run
-    :func:`sign_topk_blocks_plain`."""
+    :func:`sign_topk_blocks_plain`; ``meta`` tensors get ``meta``
+    outputs."""
+    if kernels.on_meta(x_half, x_hat):
+        return _outputs(x_half, x_hat, k_b)
     if kernels.uses_kernel(x_half, x_hat):
         return _launch(x_half, x_hat, float(trig), k_b)
     return sign_topk_blocks_plain(x_half, x_hat, trig, k_b)

@@ -264,13 +264,18 @@ def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """One-token decode. x: (B, 1, D); cache_k/v: (B, C, Hkv, hd);
     cache_pos: (C,); pos: the new token's absolute position. Every one of
     the C slots is scored; the empty and out-of-window ones are masked.
-    With a ``tp`` the caches are the rank's blocks (kv heads or slots) and
-    ``cache_pos`` is whole."""
+    With a ``tp`` the caches are the rank's blocks (kv heads, slots, or
+    every head's block of ``hd``, as ``cache_specs`` puts ``model`` on
+    head_dim where it does not divide the kv heads) and ``cache_pos`` is
+    whole. Split over head_dim, q, k and v are made whole, the rank keeps
+    its block of k and v, the scores are its partial sums all-reduced, and
+    the values' blocks are gathered after the softmax."""
     pos = int(pos)
     b, _, d = x.shape
     h, kv_h, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     C = cache_pos.shape[-1]
-    split = _cache_split(tp, cache_k, (C, kv_h, hd), ("heads",), "kv cache")
+    split = _cache_split(tp, cache_k, (C, kv_h, hd), ("heads", "head_dim"),
+                         "kv cache")
     local = split == "heads"
     if local and not _heads_local(cfg, p, tp):
         raise tpm.refuse("a kv cache split by heads with wq/wk/wv not "
@@ -279,6 +284,9 @@ def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     pos_arr = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos_arr, cfg.rope_pct, cfg.rope_theta)
     k = apply_rope(k, pos_arr, cfg.rope_pct, cfg.rope_theta)
+    if split == "head_dim":
+        lo_d, hi_d = tp.block(hd)
+        q, k, v = q[..., lo_d:hi_d], k[..., lo_d:hi_d], v[..., lo_d:hi_d]
     if split == "slots":
         _write_owned(tp, pos, C, (cache_k, cache_v), (k, v))
         cache_pos[pos % C] = pos
@@ -291,9 +299,11 @@ def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
     hl, kvl = q.shape[2], k.shape[2]
     f32 = torch.float32
-    qg = q.reshape(b, kvl, hl // kvl, hd)
-    s = torch.einsum("bhgd,bchd->bhgc", qg.to(f32),
-                     cache_k.to(f32)) / math.sqrt(hd)
+    qg = q.reshape(b, kvl, hl // kvl, q.shape[-1])
+    s = torch.einsum("bhgd,bchd->bhgc", qg.to(f32), cache_k.to(f32))
+    if split == "head_dim":
+        s = tp.reduce(s)
+    s = s / math.sqrt(hd)
     s = torch.where(valid[None, None, None, :], s, NEG_INF)
     if split == "slots":
         o = _lse(s, lambda e: torch.einsum("bhgc,bchd->bhgd", e,
@@ -301,6 +311,8 @@ def decode_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     else:
         a = torch.softmax(s, dim=-1)
         o = torch.einsum("bhgc,bchd->bhgd", a, cache_v.to(f32))
+    if split == "head_dim":
+        o = tp.gather(o, -1)
     cd = dtype_of(cfg.compute_dtype)
     o = o.reshape(b, 1, hl * hd).to(cd)
     if local:

@@ -123,7 +123,10 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
         counts = torch.cat([choices.sum(0),
                             choices.new_tensor([t_count])])        # (E + 1,)
         every = group.all_gather(counts[None], 0)           # (ranks, E + 1)
-        t_all = int(every[:, e].sum())
+        # a meta tensor (the dry run) holds no counts; the engine gives
+        # every rank of its fsdp group an equal block of the tokens
+        t_all = (t_count * group.size if every.device.type == "meta"
+                 else int(every[:, e].sum()))
         cap = capacity(cfg, t_all)
         before = every[:group.rank, :e].sum(0)                     # (E,)
         f_e = every[:, :e].sum(0).to(torch.float32) / t_all

@@ -395,8 +395,8 @@ def test_catalog_keeps_every_reference_rule():
         assert rule.port, rid
     ported = {r for r, rule in trules.RULES.items()
               if rule.port == trules.PORTED}
-    assert ported == {"R6", "R7", "R8", "R9", "R10", "K1", "K3"}
-    assert trules.RULES["K4"].port.startswith("queued")
+    assert ported == {"R6", "R7", "R8", "R9", "R10", "K1", "K3", "K4"}
+    assert trules.RULES["K4"].port == trules.PORTED
     with pytest.raises(ValueError, match="not ported"):
         trules.finding("R11", "x")
     doc = trules.render_report([trules.Report("p")],

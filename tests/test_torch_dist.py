@@ -242,3 +242,31 @@ def test_unported_options_raise():
         with pytest.raises(ValueError, match="dimension"):
             cfg(compressor=comp.QSGD()).resolved_gamma(
                 topo.make_topology("ring", N))
+
+
+def test_engine_takes_frontend_embeds_like_the_reference(float32_scores):
+    """The audio config's batch of frontend embeds (float32, with labels),
+    as the reference's dry run hands it to its engine: the port's engine
+    keeps the embeds' float dtype and matches the reference's losses."""
+    kw = dict(n_nodes=N, compute_dtype="float32")
+    small = dict(n_layers=1, d_model=128, vocab=256)
+    jc = dataclasses.replace(jget("musicgen-large").reduced(**small), **kw)
+    tc = dataclasses.replace(tget("musicgen-large").reduced(**small), **kw)
+    rng = np.random.default_rng(1)
+    batch = {"labels": rng.integers(0, jc.vocab_size,
+                                    (N, 2, 16)).astype(np.int32),
+             "embeds": rng.standard_normal((N, 2, 16, jc.d_model)
+                                           ).astype(np.float32)}
+    p0 = jtf.init_params(jc, jax.random.PRNGKey(0))
+    (jinit, jstep), (tinit, tstep) = _engines(jc, tc, _always, 2, 0.0,
+                                              "ring")
+    js = jinit(jax.random.PRNGKey(0))
+    ts = tinit(params=params_from_jax(tc, jax.tree.map(np.asarray, p0)))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    for _ in range(2):
+        js, jm = jstep(js, jb)
+        ts, tm = tstep(ts, batch)
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
+                                                  rel=1e-5)
+    np.testing.assert_allclose(ts["params"].numpy(), np.asarray(js["params"]),
+                               atol=5e-4, rtol=0)

@@ -1,6 +1,7 @@
 """K1 and K3 of the port's CUDA kernels (``repro_torch.analysis.
 kernel_lint``): the source legs here on the CPU, against the committed
-``kernels/csrc`` and against copies broken on purpose; the card legs under
+``kernels/csrc`` and against copies broken on purpose; K4 on the committed
+tree and on a small tree of its own; the card legs under
 the ``cuda`` marker (skipped without a card), run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda -q tests/test_torch_kernel_lint.py
@@ -131,6 +132,58 @@ def test_cli_source_legs_on_the_cpu(tmp_path, capsys):
     for bad in ("results/x.json", "ANALYSIS.json"):
         with pytest.raises(SystemExit, match="reference"):
             analysis_main(["--kernels", "--device", "cpu", "--out", bad])
+
+
+# ------------------------------------------------------------------ K4
+
+def test_k4_tags_the_dense_gossip_of_the_committed_tree():
+    out, meta = kl.lint_dense_gossip(program="t")
+    assert meta["dense_sites"] == len(out) >= 2
+    assert {f.rule_id for f in out} == {"K4"}
+    assert {f.severity for f in out} == {"warning"}
+    locs = [f.location for f in out]
+    assert any("repro_torch/core/sparq.py:" in x for x in locs)
+    assert any("repro_torch/dist/sparq_dist.py:" in x for x in locs)
+    msgs = " ".join(f.message for f in out)
+    assert "gossip_mix()" in msgs and "build_sparq()" in msgs
+    assert "n=10000" in msgs and "0.4 GiB" in msgs
+
+
+def test_k4_passes_a_gossip_free_tree(tmp_path):
+    pkg = tmp_path / "repro_torch"
+    (pkg / "dist").mkdir(parents=True)
+    (pkg / "core").mkdir()
+    for d in (pkg, pkg / "dist", pkg / "core"):
+        (d / "__init__.py").write_text("")
+    (pkg / "core" / "sparq.py").write_text(
+        "import torch\n\n"
+        "def ring_mix(x, c):\n"
+        "    return c * (torch.roll(x, 1, 0) + torch.roll(x, -1, 0)) - x\n")
+    (pkg / "dist" / "sparq_dist.py").write_text(
+        "from repro_torch.core.sparq import ring_mix\n\n"
+        "def build_sparq(plan):\n"
+        "    def mix_term(x):\n"
+        "        return ring_mix(x, 0.5)\n"
+        "    return mix_term\n")
+    # a product outside the gossip modules is model compute, not mixing
+    (pkg / "core" / "model.py").write_text(
+        "def layer(x, w):\n    return x @ w\n")
+    out, meta = kl.lint_dense_gossip(pkg, program="t")
+    assert out == [] and meta == {"dist_reachable": 3, "dense_sites": 0}
+    # the same tree with a dense product in the mix is tagged
+    (pkg / "core" / "sparq.py").write_text(
+        "import torch\n\n"
+        "def ring_mix(x, c):\n"
+        "    return torch.tensordot(c, x, dims=1) - x\n")
+    out, meta = kl.lint_dense_gossip(pkg, program="t")
+    assert [f.location for f in out] == ["t:repro_torch/core/sparq.py:4"]
+
+
+def test_cli_runs_k4(capsys):
+    assert analysis_main(["--kernels", "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "dist/dense_gossip: 0 error(s), 2 warning(s)" in text
+    assert "[K4/WARNING]" in text
 
 
 # ------------------------------------------------------------ on the card

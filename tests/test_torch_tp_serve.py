@@ -6,7 +6,8 @@ is in turn held against the reference's ``build_prefill`` and
 
 Two ranks at ``(data 1, model 2)`` serve every one of the ten ``reduced()``
 configs with ``cache_mode="auto"``, and the SSM, hybrid and MLA configs
-with their caches on the slots (``"seq"``) too; four ranks at ``(data 2,
+with their caches on the slots (``"seq"``) too, and the dense config with
+one kv head (``KV1``), whose cache ``"auto"`` splits over head_dim; four ranks at ``(data 2,
 model 2)`` serve the dense config in both ``embed_mode``s and all three
 ``cache_mode``s. A case's fourth field picks the decode's ring (``RINGS``):
 the plain run fills ``STEPS`` slots in ``STEPS`` steps; ``wrap`` decodes 7
@@ -61,12 +62,19 @@ F32_SCORES = functools.partial(tattn.chunked_attention,
                                score_dtype=torch.float32)
 DENSE = "qwen1.5-0.5b"
 MLA = "deepseek-v3-671b"
+# one kv head: model 2 does not divide the kv heads, so cache_specs puts
+# the cache's model axis on head_dim (the dry run meets this placement at
+# the reference's 16-wide model axis in chameleon-34b, minitron-4b and
+# qwen1.5-32b, whose 8 kv heads it does not divide)
+KV1 = f"{DENSE}:kv1"
+VARIANTS = {"kv1": {"n_kv_heads": 1}}
 # (arch, embed_mode, cache_mode, ring) of each mesh's ranks
 TWO = [(a, "vocab", "auto", "") for a in treg.ARCH_IDS] + \
     [(a, "vocab", "seq", "") for a in ("mamba2-370m", "zamba2-7b", MLA,
                                        "deepseek-moe-16b")] + \
     [(a, "vocab", c, r) for a in (DENSE, MLA) for c in ("auto", "seq")
-     for r in ("wrap", "window")]
+     for r in ("wrap", "window")] + \
+    [(KV1, "vocab", "auto", r) for r in ("", "window")]
 FOUR = [(DENSE, e, c, "") for e in ("vocab", "dmodel")
         for c in ("auto", "inner", "seq")] + \
     [(DENSE, "vocab", "seq", "wrap"), (DENSE, "dmodel", "seq", "window")]
@@ -76,10 +84,17 @@ def _ids(case):
     return "-".join(f for f in case if f)
 
 
+def _variant(arch):
+    """``(registry arch, field overrides)`` of a case's arch name."""
+    name, _, variant = arch.partition(":")
+    return name, VARIANTS.get(variant, {})
+
+
 def _cfg(arch, ring=""):
-    return dataclasses.replace(treg.get_config(arch).reduced(),
+    name, over = _variant(arch)
+    return dataclasses.replace(treg.get_config(name).reduced(),
                                compute_dtype="float32",
-                               sliding_window=RINGS[ring][2])
+                               sliding_window=RINGS[ring][2], **over)
 
 
 def _inputs(cfg, batch):
@@ -189,8 +204,10 @@ def _reference(arch, batch, ring):
     from repro.models import attention as jattn
     from repro.models import transformer as jtf
     steps, slots, window = RINGS[ring]
-    jc = dataclasses.replace(jreg.get_config(arch).reduced(),
-                             compute_dtype="float32", sliding_window=window)
+    name, over = _variant(arch)
+    jc = dataclasses.replace(jreg.get_config(name).reduced(),
+                             compute_dtype="float32", sliding_window=window,
+                             **over)
     tok, emb = _inputs(_cfg(arch, ring), batch)
     tok = None if tok is None else jnp.asarray(tok.numpy(), jnp.int32)
     emb = None if emb is None else jnp.asarray(emb.numpy())
@@ -331,6 +348,9 @@ def test_model_axis_shards_every_leaf_it_places(two):
         assert "model" in specs[path], path
     k = r["cache"]["kv"]["k"]
     assert k.shape[3] == cfg.n_kv_heads // 2
+    # one kv head: the cache splits over head_dim
+    k = two[0][(KV1, "vocab", "auto", "")]["cache"]["kv"]["k"]
+    assert k.shape[3:] == (1, cfg.resolved_head_dim // 2)
 
 
 def test_whole_params_are_refused():

@@ -189,10 +189,14 @@ def test_missing_nvcc_raises(monkeypatch):
 
 def test_wrapper_refuses_devices_without_a_path():
     meta = torch.zeros((2, 1024), device="meta")
-    with pytest.raises(ValueError):
-        sign_topk_blocks(meta, None, 1.0, 8)
+    # meta alone has a path, the dry run's: meta outputs, nothing runs
+    q, x_hat_new, scale = sign_topk_blocks(meta, None, 1.0, 8)
+    assert q.device.type == "meta" and q.shape == (2, 1024)
+    assert x_hat_new is None and scale.shape == (2,)
     with pytest.raises(ValueError):
         sign_topk_blocks(torch.zeros((2, 1024)), meta, 1.0, 8)
+    with pytest.raises(ValueError):
+        sign_topk_blocks(meta, torch.zeros((2, 1024)), 1.0, 8)
 
 
 def _port_files():
