@@ -81,6 +81,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import bits as bits_mod
 from repro_torch.core import prng
 from repro_torch.core.compression import BlockTopFrac, Compressor, TopFrac
@@ -316,7 +317,8 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     (repaired under faults), ``live`` (None without faults), the gated
     triggers ``trig`` of all n nodes and the rank's ``rows``.
     ``train_step.exchange_s`` lists each sync's seconds in the row
-    exchanges.
+    exchanges. With tracing on (:mod:`repro_torch.spans`) each step and its
+    parts are spans, and each sync counts the rows it compressed and sent.
 
     ``device="meta"`` builds the engine on shapes without memory (the dry
     run, :mod:`repro_torch.launch.dryrun`): start from
@@ -422,8 +424,10 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
             for j in range(mbs):
                 lo_j = j * whole + f_lo
                 sub = {k: v[i, lo_j:lo_j + mb] for k, v in batch.items()}
-                loss = lm_loss(cfg, tree, sub, group)[0]
-                loss.backward()
+                with spans.span("model.forward"):
+                    loss = lm_loss(cfg, tree, sub, group)[0]
+                with spans.span("model.backward"):
+                    loss.backward()
                 losses[i] += loss.detach()
         if mbs > 1:
             losses.div_(mbs)
@@ -442,7 +446,8 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
         if shift_terms is not None:
             # (W x)_i = sum_s c_s x_{(i+s) mod n}: the rolled rows fetched
             # (rolled, with one rank), added in the one-process order
-            rolled = comm.fetch_shifts(xe, [s for s, _ in shift_terms])
+            with spans.span("comm.fetch"):
+                rolled = comm.fetch_shifts(xe, [s for s, _ in shift_terms])
             acc = (float(shift_row[0]) - 1.0) * x
             for (_, c_s), x_s in zip(shift_terms, rolled, strict=True):
                 acc = acc + c_s * x_s.to(torch.float32)
@@ -451,7 +456,9 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
             return gossip_mix(W_r, x)
         # the product over all n rows, of which this rank keeps its own: a
         # GEMM of m rows may sum in another order than the n-row one
-        return gossip_mix(W_r, comm.gather_rows(x))[lo:lo + m]
+        with spans.span("comm.fetch"):
+            rows = comm.gather_rows(x)
+        return gossip_mix(W_r, rows)[lo:lo + m]
 
     def node_rows(opt_state: Any) -> List[torch.Tensor]:
         """The optimizer state's node-stacked tensors (a shared step count
@@ -496,44 +503,57 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     def sync(state: State, diff: torch.Tensor, eta: torch.Tensor) -> None:
         params, x_hat = state["params"], state["x_hat"]
         t, r = state["t"], state["sync_rounds"] % R
-        c_t = dcfg.threshold(t)
-        sq = torch.zeros((m,), dtype=torch.float32, device=dev)
-        for c in _column_chunks(D_pad):
-            d = torch.sub(params[:, c], x_hat[:, c].to(torch.float32),
-                          out=diff[:, c])
-            sq += (d * d).sum(dim=1)
-        trig = trigger_mask(comm.gather_vec(sq), c_t, eta)     # (n,)
-        live = None
-        if flt is None:
-            W_r, deg_r = ws_dev[r], degs_dev[r]
-        else:
-            # the round's matrix repaired over the surviving links, offline
-            # nodes muted, bits charged on live links only
-            W_r, deg_r, live = flt.apply(ws[r], t, state["sync_rounds"])
-            W_r, deg_r = W_r.to(dev), deg_r.to(dev)
-            trig = trig & live.to(dev)
-        trigf = trig[lo:lo + m].to(torch.float32)[:, None]
-        if on_sync is not None:
-            on_sync(diff, {"t": t, "sync_round": state["sync_rounds"],
-                           "W": W_r, "deg": deg_r, "live": live,
-                           "trig": trig, "rows": (lo, lo + m)})
-        q = compress(diff, t)
-        comm.seconds = 0.0
-        for c in _column_chunks(D_pad):
-            xe_new = (x_hat[:, c].to(torch.float32)
-                      + q[:, c] * trigf).to(xhat_dt)          # lines 11, 13
-            x_hat[:, c] = xe_new
-            params[:, c] += gamma * mix_term(xe_new, W_r)
-        exchange_s.append(comm.seconds)
+        with spans.span("sparq.sync.diff"):
+            c_t = dcfg.threshold(t)
+            sq = torch.zeros((m,), dtype=torch.float32, device=dev)
+            for c in _column_chunks(D_pad):
+                d = torch.sub(params[:, c], x_hat[:, c].to(torch.float32),
+                              out=diff[:, c])
+                sq += (d * d).sum(dim=1)
+            trig = trigger_mask(comm.gather_vec(sq), c_t, eta)     # (n,)
+            live = None
+            if flt is None:
+                W_r, deg_r = ws_dev[r], degs_dev[r]
+            else:
+                # the round's matrix repaired over the surviving links,
+                # offline nodes muted, bits charged on live links only
+                W_r, deg_r, live = flt.apply(ws[r], t, state["sync_rounds"])
+                W_r, deg_r = W_r.to(dev), deg_r.to(dev)
+                trig = trig & live.to(dev)
+            trigf = trig[lo:lo + m].to(torch.float32)[:, None]
+            if on_sync is not None:
+                on_sync(diff, {"t": t, "sync_round": state["sync_rounds"],
+                               "W": W_r, "deg": deg_r, "live": live,
+                               "trig": trig, "rows": (lo, lo + m)})
+        with spans.span("sparq.sync.compress"):
+            q = compress(diff, t)
+        with spans.span("sparq.sync.mix"):
+            comm.seconds = 0.0
+            for c in _column_chunks(D_pad):
+                xe_new = (x_hat[:, c].to(torch.float32)
+                          + q[:, c] * trigf).to(xhat_dt)      # lines 11, 13
+                x_hat[:, c] = xe_new
+                params[:, c] += gamma * mix_term(xe_new, W_r)
+            exchange_s.append(comm.seconds)
         del q
-        state["bits"], state["bits_c"] = bits_mod.acc_add(
-            state["bits"], state["bits_c"],
-            sync_message_bits(trig, deg_r, payload))
-        state["sync_rounds"] += 1
-        state["triggers"] += trig.sum().to(torch.int32)
+        with spans.span("sparq.sync.bits"):
+            state["bits"], state["bits_c"] = bits_mod.acc_add(
+                state["bits"], state["bits_c"],
+                sync_message_bits(trig, deg_r, payload))
+            state["sync_rounds"] += 1
+            state["triggers"] += trig.sum().to(torch.int32)
+        if spans.counting():
+            # every row is compressed; only the triggered ones are sent
+            spans.count("sparq.rows_compressed", m)
+            spans.count("sparq.rows_sent", trig[lo:lo + m].sum())
 
     def train_step(state: State, batch: Mapping[str, Any]
                    ) -> Tuple[State, Dict[str, Any]]:
+        with spans.span("sparq.step"):
+            return step(state, batch)
+
+    def step(state: State, batch: Mapping[str, Any]
+             ) -> Tuple[State, Dict[str, Any]]:
         lead = {v.shape[0] for v in batch.values()}
         if lead not in ({n}, {m}):
             raise ValueError(f"batch leading dims {sorted(lead)} != "
@@ -545,14 +565,17 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
             device=dev, dtype=None if k == "embeds" else torch.int64)
             for k, v in batch.items()}
         params = state["params"]
-        grads = torch.zeros_like(params)
-        losses = node_losses_grads(params, batch, grads)
+        with spans.span("sparq.fwd_bwd"):
+            grads = torch.zeros_like(params)
+            losses = node_losses_grads(params, batch, grads)
         eta = dcfg.lr(state["t"])
         with torch.no_grad():
             # params becomes x^{t+1/2}; grads is left free for diff
-            local_step(state, grads, eta)
+            with spans.span("sparq.local_step"):
+                local_step(state, grads, eta)
             if is_sync(state["t"], H):
-                sync(state, grads, eta)
+                with spans.span("sparq.sync"):
+                    sync(state, grads, eta)
         del grads
         state["t"] += 1
         metrics = {"loss": comm.gather_vec(losses).mean(), "eta": eta,

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.core import prng
 from repro_torch.models import parallel as tpm
 from repro_torch.models.config import ModelConfig
@@ -151,6 +152,20 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
             slot.view(t_count, k))
 
 
+def _route_counted(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
+                   group: Optional[tpm.Collectives] = None):
+    """:func:`route` in the ``moe.route`` span; while tracing, its choices
+    and the dropped ones are counted once a forward (not again in a
+    checkpointed recompute)."""
+    with spans.span("moe.route"):
+        out = route(cfg, router_w, x, group=group)
+    if spans.counting():
+        cap, slot = out[3], out[4]
+        spans.count("moe.choices", slot.numel())
+        spans.count("moe.dropped", (slot == cfg.n_experts * cap).sum())
+    return out
+
+
 def combine(ye: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """``zeros((T, D)).at[token_for_slot].add(ye)`` in ``ye``'s dtype,
     with each token's slots added in increasing slot order.
@@ -237,17 +252,18 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ``group``: the fsdp group whose ranks hold the rest of the batch, which
     is routed as one (:func:`route`); ``tp``: the serve mesh's ``model``
     axis (expert parallelism, :func:`_routed`)."""
-    if cfg.moe_route_blocks > 1:
-        return _moe_forward_blocked(cfg, p, x, group, tp)
-    b, s, d = x.shape
-    xt = x.reshape(b * s, d)
-    router = tpm.whole(p["router"], d, tp, dim=0)
-    token_for_slot, gate_for_slot, aux, cap, slot = route(cfg, router, xt,
-                                                          group=group)
-    y = _routed(cfg, p, xt, token_for_slot, gate_for_slot, cap, slot, tp)
-    if cfg.n_shared_experts:
-        y = y + _shared(cfg, p, xt, tp)
-    return y.reshape(b, s, d), aux.to(torch.float32)
+    with spans.span("moe.layer"):
+        if cfg.moe_route_blocks > 1:
+            return _moe_forward_blocked(cfg, p, x, group, tp)
+        b, s, d = x.shape
+        xt = x.reshape(b * s, d)
+        router = tpm.whole(p["router"], d, tp, dim=0)
+        token_for_slot, gate_for_slot, aux, cap, slot = _route_counted(
+            cfg, router, xt, group)
+        y = _routed(cfg, p, xt, token_for_slot, gate_for_slot, cap, slot, tp)
+        if cfg.n_shared_experts:
+            y = y + _shared(cfg, p, xt, tp)
+        return y.reshape(b, s, d), aux.to(torch.float32)
 
 
 def _moe_forward_blocked(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -276,8 +292,8 @@ def _moe_forward_blocked(cfg: ModelConfig, p: Params, x: torch.Tensor,
     router = tpm.whole(p["router"], d, tp, dim=0)
     ys, auxs = [], []
     for xb in xt.reshape(nb, b * s // nb, d):
-        token_for_slot, gate_for_slot, aux, cap, slot = route(cfg, router,
-                                                              xb)
+        token_for_slot, gate_for_slot, aux, cap, slot = _route_counted(
+            cfg, router, xb)
         ys.append(_routed(cfg, p, xb, token_for_slot, gate_for_slot, cap,
                           slot, tp))
         auxs.append(aux)
