@@ -12,8 +12,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 2. each kernel against its plain PyTorch version on the card, on the cases
    of the reference's kernel tests, then timed at the main path's shape,
    (2,420,196, 1024) float32, and held against the plain version there on
-   every tile; then the flat-buffer engine on a small float32 model, its
-   CUDA kernel path against its plain path on the CPU;
+   every tile; the sync's x_hat update and mixing (``xhat_mix``) at the
+   benchmark cells' row shapes, (4, 1,091,315,712) in roll mode and (2,
+   1,644,367,872) in dense mode, held against the plain version on three
+   column slabs and timed beside it; then the flat-buffer engine on a
+   small float32 model, its CUDA kernel path against its plain path on the
+   CPU;
 3. the paths, each driven with every launch count set to 0 just before and
    read just after, and failed if a kernel of the path was never launched:
    a. the trainer (the main path): the port's train entry at the full width
@@ -217,6 +221,13 @@ SIGN_TOPK_F32_OPS = 3
 # multiplies: about 12 float32 operations
 QSGD_F32_OPS = 12
 PLAIN_ROWS = 1 << 16          # tiles per call of the plain version
+# the sync's x_hat update and mixing at the benchmark cells' rows
+# (bench/configs: deepseek-moe-16b cut to 2 layers on 4 nodes, a ring of 4
+# mixed by rolls; stablelm-2-1.6b on 2 nodes, a ring of 2 mixed densely),
+# float32, compared with the plain version on slabs of MIX_SLAB columns
+XHAT_MIX_SHAPES = (("dsmoe16b-d2n4", 4, 1_091_315_712),
+                   ("stablelm1.6b-n2", 2, 1_644_367_872))
+MIX_SLAB = 1 << 22
 MAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--nodes", "4", "--use-kernel",
              "--steps", "6", "--H", "3", "--batch-per-node", "2",
              "--seq-len", "128", "--log-every", "1", "--device", "cuda"]
@@ -861,6 +872,74 @@ class ArchRegistry:
     def __exit__(self, *exc):
         from repro_torch.configs import registry
         registry.get_config = self.real
+
+
+def phase_xhat_mix(torch, dev):
+    """The one-pass x_hat update and mixing at each of
+    :data:`XHAT_MIX_SHAPES`, a ring's plan: one launch held against the
+    plain version on its first, middle and last slab of columns (roll mode
+    bit for bit, dense mode within ``parity.xhat_mix_tolerance``), then the
+    kernel's mean time over 10 launches and the plain version's (the
+    engine's former eager chunks) over 2, beside the byte bound."""
+    from repro_torch.core.topology import circulant_row
+    from repro_torch.dist.sparq_dist import DistSparqConfig
+    from repro_torch.kernels import parity
+    from repro_torch.kernels import xhat_mix as xm
+    gamma = parity.XHAT_MIX_GAMMA
+    out = {}
+    for name, n, width in XHAT_MIX_SHAPES:
+        t0 = time.perf_counter()
+        ws = DistSparqConfig(variant="ring").resolved_plan(n).ws
+        row = circulant_row(ws[0]) if n > 2 else None
+        roll = None if row is None else (
+            float(row[0]), tuple((s, float(row[s])) for s in range(1, n)
+                                 if row[s] > 0.0))
+        w = None if roll else torch.tensor(ws[0], dtype=torch.float32,
+                                           device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        x_hat = torch.randn((n, width), generator=gen, device=dev).mul_(0.5)
+        x = torch.randn((n, width), generator=gen, device=dev)
+        q = torch.randn((n, width), generator=gen, device=dev).mul_(0.1)
+        trig = parity.xhat_mix_trig(n, dev)
+        mid = width // 2 // 1024 * 1024
+        slabs = [slice(lo, lo + MIX_SLAB)
+                 for lo in (0, mid, width - MIX_SLAB)]
+        before = [tuple(t[:, c].clone() for t in (x_hat, x, q)) + (trig,)
+                  for c in slabs]
+        launches = xm.xhat_mix.launches
+
+        def kernel():
+            xm.xhat_mix(x_hat, x, q, trig, gamma, w=w, roll=roll)
+        kernel()
+        torch.cuda.synchronize()
+        if xm.xhat_mix.launches != launches + 1:
+            raise AssertionError(f"xhat_mix at {name}'s rows: "
+                                 f"{xm.xhat_mix.launches - launches} "
+                                 f"launches, want 1")
+        err = max(parity.compare_xhat_mix(
+            b, (x_hat[:, c], x[:, c]), w, roll, gamma, spec=(name, c.start))
+            for b, c in zip(before, slabs))
+        del before
+        ms = time_ms(torch, kernel, 10)
+        plain_ms = time_ms(torch, lambda: xm.xhat_mix_plain(
+            x_hat, x, q, trig, gamma, w=w, roll=roll), 2)
+        nbytes = xm.work_bytes(n, width, torch.float32, w is not None)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        mode = "roll" if roll else "dense"
+        log(f"xhat_mix at {name}'s ({n}, {width}) f32, {mode} mode: "
+            f"kernel_ms {ms:.4f} ({100 * bound / ms:.1f}% of the bound's "
+            f"speed); plain_ms {plain_ms:.4f}; bound_ms {bound:.4f} (bytes: "
+            f"{nbytes / 1e9:.2f} GB); kernel == plain version on 3 slabs of "
+            f"{MIX_SLAB} columns ({'bit for bit' if roll else 'within the '
+            'dense tolerance'}, max |x| diff {err:.3e}) "
+            f"({time.perf_counter() - t0:.1f} s)")
+        out[name] = {"shape": [n, width], "mode": mode, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "max_abs_err": err}
+        del x_hat, x, q
+        torch.cuda.empty_cache()
+    return out
 
 
 def sign_topk_bound_ms(rows) -> float:
@@ -2228,6 +2307,7 @@ def phase_driver(torch, train, counts, zero_counts, read_counts,
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.dist.sparq_dist import build_sparq
     from repro_torch.kernels.sign_topk import sign_topk_blocks
+    from repro_torch.kernels.xhat_mix import xhat_mix
     from repro_torch.launch import op_walk
     from repro_torch.launch import run as run_mod
     from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
@@ -2295,13 +2375,15 @@ def phase_driver(torch, train, counts, zero_counts, read_counts,
             k: torch.empty(v.shape, dtype=v.dtype, device="meta")
             for k, v in batch.items()}
         before = sign_topk_blocks.launches
+        mix_before = xhat_mix.launches
         with op_walk.OpWalk(where) as w:
             step(state, b)
             if where == "cuda":
                 torch.cuda.synchronize()
         launched = sign_topk_blocks.launches - before
-        # a comparison, not a path: the count is restored
+        # a comparison, not a path: the counts are restored
         sign_topk_blocks.launches = before
+        xhat_mix.launches = mix_before
         walks[where] = (w.result(), launched)
         del state
     (card_w, card_n), (meta_w, meta_n) = walks["cuda"], walks["meta"]
@@ -2759,6 +2841,7 @@ def main() -> int:
                                                sign_topk_blocks_plain)
     from repro_torch.kernels.sign_topk import \
         work_bytes as sign_topk_work_bytes
+    from repro_torch.kernels.xhat_mix import xhat_mix
     from repro_torch.launch import (bench_kernels, convex_bits, faults_bits,
                                     topology_bits, train)
     from repro_torch.models.transformer import init_params, param_shapes
@@ -2896,6 +2979,8 @@ def main() -> int:
     del x, u
     torch.cuda.empty_cache()
 
+    mix_rec = phase_xhat_mix(torch, dev)
+
     # the flat-buffer engine, kernel path on the card vs plain path on the
     # CPU, on a small float32 model from the same weights: the repo's own
     # reference for the slice. frac = 1 selects every nonzero entry, so the
@@ -2950,11 +3035,17 @@ def main() -> int:
             captured.append(diff.clone())
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
+    mix0 = xhat_mix.launches
     alloc0 = alloc_counts(torch)
     result = train.run(MAIN_ARGS, on_sync=keep_diff)
     alloc1 = alloc_counts(torch)
     counts["train"] = read_counts()
     launches = counts["train"]["sign_topk_blocks"]
+    # the x_hat update and mixing: one launch a sync, as SignTopK
+    main_mix_launches = xhat_mix.launches - mix0
+    if main_mix_launches != launches:
+        raise AssertionError(f"main path: {main_mix_launches} xhat_mix "
+                             f"launches for {launches} syncs")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     state, step = result["state"], result["train_step"]
     losses = result["losses"]
@@ -3568,7 +3659,15 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": None,
         "library_note": "no single PyTorch call computes blockwise QSGD",
         "plain_tiles_per_call": PLAIN_ROWS,
-        "shape": [rows, BLOCK], "s": 16, "audits": audits("qsgd")}]}
+        "shape": [rows, BLOCK], "s": 16, "audits": audits("qsgd")}, {
+        "name": "xhat_mix", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xhat_mix.cu",
+        "replaces": "src/repro_torch/dist/sparq_dist.py sync()'s eager "
+                    "x_hat update and mix_term (no Pallas kernel)",
+        "launches": main_mix_launches, "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no one PyTorch call updates x_hat and mixes",
+        "at_shapes": mix_rec, "audits": audits("xhat_mix")}]}
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(report))
     print(card_line())

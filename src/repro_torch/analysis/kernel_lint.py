@@ -11,15 +11,19 @@ rule has a leg that reads the source on the CPU and a leg that asks the card.
   is registered to a :class:`Probe`, every ``extern "C"`` launch entry
   belongs to a probe's ``ENTRIES`` and exports ``<entry>_launch_config`` and
   ``<entry>_attributes``, and the wrapper refuses anything but a ``(tiles,
-  1024)`` view (``kernels/ops.py`` pads the tail). An unregistered kernel is
-  an error, as an un-probed ``pallas_call`` is (``kernel_lint.py:312``).
+  1024)`` view (``kernels/ops.py`` pads the tail), or rows of whole tiles
+  (``xhat_mix``). An unregistered kernel is an error, as an un-probed
+  ``pallas_call`` is (``kernel_lint.py:312``).
 * **K1, card leg.** Each probe and dtype launches, through the C entry, on
   ``1``, ``warps - 1``, ``grid_cap * warps + 1`` and ``3 * grid_cap * warps +
   5`` tiles (``warps`` tiles per block, ``grid_cap`` the largest grid, both
   from ``_launch_config``): the outputs are filled with NaN first and the
   views stop one guard tile short of their allocation. Every tile must be
   written, the guard tile left alone, and the output must equal the plain
-  version (:mod:`repro_torch.kernels.parity`'s tolerances).
+  version (:mod:`repro_torch.kernels.parity`'s tolerances). ``xhat_mix``
+  updates its rows in place, at n = 2, 3, 4 and 16 rows of that many tiles
+  and a row stride one guard tile longer: the rows must equal the plain
+  version's and every guard tile keep its NaN.
 * **K3, closed form.** From the source's constants: the kernel's static
   shared memory must fit the 48 KiB a block gets without opting in, the
   launch passes no dynamic shared memory, and ``__launch_bounds__(threads,
@@ -51,7 +55,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.analysis.rules import WARNING, Finding, finding
-from repro_torch.kernels import parity, qsgd, sign_topk
+from repro_torch.kernels import parity, qsgd, sign_topk, xhat_mix
 
 CSRC = Path(__file__).resolve().parents[1] / "kernels" / "csrc"
 STATIC_SHARED_LIMIT = 48 * 1024     # per block without an opt-in
@@ -76,6 +80,10 @@ PROBES: Tuple[Probe, ...] = (
           lambda x: sign_topk._check_cuda_inputs(x, None, K_B)),
     Probe("qsgd", "qsgd_kernel", qsgd,
           lambda x: qsgd._check(x, torch.zeros_like(x), 16)),
+    Probe("xhat_mix", "xhat_mix_kernel", xhat_mix,
+          lambda x: xhat_mix._check(x, x.clone(), x.clone(),
+                                    torch.ones(x.shape[0]), None,
+                                    (1.0, ()))),
 )
 
 
@@ -371,8 +379,43 @@ def _qsgd_case(probe, dtype, n: int, fused: bool, gen, dev):
     return None, err, flips
 
 
-_CASES = {"sign_topk": (_sign_topk_case, (False, True)),
-          "qsgd": (_qsgd_case, (False,))}
+def _xhat_mix_case(probe, key, n: int, nodes: int, gen, dev):
+    """In place, so the view's rows must equal the plain version's (a tile
+    left unwritten keeps inputs that differ from it) and the guard tile of
+    every row, past the view's row stride, must keep its NaN."""
+    mode, dtype = key
+    mod = probe.wrapper
+    width, ld = n * mod.BLOCK, (n + 1) * mod.BLOCK
+    x_hat, x, q, trig, w, roll = parity.make_xhat_mix_case(
+        mode, nodes, ld, dtype, dev, seed=int(torch.randint(
+            1 << 30, (1,), generator=gen, device=dev)))
+    for t in (x_hat, x, q):
+        t[:, width:] = float("nan")
+    before = tuple(t[:, :width].clone() for t in (x_hat, x, q)) + (trig,)
+    coefs, mask = mod._roll_args(roll, nodes) if roll else (None, 0)
+    lib, fn = mod.entry(key)
+    with torch.cuda.device(dev):
+        code = fn(x_hat.data_ptr(), x.data_ptr(), q.data_ptr(),
+                  trig.data_ptr(), None if w is None else w.data_ptr(),
+                  coefs, mask, parity.XHAT_MIX_GAMMA, nodes, n, ld,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(lib, code, f"{probe.source} probe")
+    torch.cuda.synchronize(dev)
+    for name, t in (("x_hat", x_hat), ("x", x)):
+        if not torch.isnan(t[:, width:].float()).all():
+            return f"{name}: the guard tile past the view was written", \
+                0.0, 0
+    err = parity.compare_xhat_mix(
+        before, (x_hat[:, :width], x[:, :width]), w, roll,
+        parity.XHAT_MIX_GAMMA, spec=(key, n, nodes))
+    return None, err, 0
+
+
+# each source's case and its modes, by the label a finding gives them
+_CASES = {"sign_topk": (_sign_topk_case, {"": False, " (fused)": True}),
+          "qsgd": (_qsgd_case, {"": False}),
+          "xhat_mix": (_xhat_mix_case, {f" (n {n})": n for n in
+                                        parity.XHAT_MIX_NODES})}
 
 
 def tile_counts(grid_cap: int, warps: int) -> List[int]:
@@ -408,17 +451,16 @@ def lint_coverage_card(device: torch.device, probes: Sequence[Probe] = PROBES,
                         "K1", f"{entry}: grid {grid} for {n} tiles, want "
                               f"min({grid_cap}, ceil({n} / {warps}))",
                         f"{program}:{entry}"))
-                for fused in modes:
+                for label, mode in modes.items():
                     try:
-                        bad, err, flips = case(p, dtype, n, fused, gen,
+                        bad, err, flips = case(p, dtype, n, mode, gen,
                                                device)
                     except AssertionError as e:
                         bad, err, flips = f"kernel != plain version: {e}", \
                             0.0, 0
                     if bad:
                         out.append(finding(
-                            "K1", f"{entry} on {n} tiles"
-                                  f"{' (fused)' if fused else ''}: {bad}",
+                            "K1", f"{entry} on {n} tiles{label}: {bad}",
                             f"{program}:{entry}"))
                     rec["max_abs_err"] = max(rec["max_abs_err"], err)
                     rec["boundary_flips"] += flips

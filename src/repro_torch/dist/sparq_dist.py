@@ -22,7 +22,10 @@ COMPRESS_STREAM), t), n)``; its result overwrites ``diff`` in place.
 
 ``W_r`` is round ``sync_rounds % R`` of the gossip plan; a static
 circulant plan (ring, complete, ...) with no faults mixes by row rolls,
-anything else by the dense product, column chunk by column chunk. A fault
+anything else by the dense product. When one rank holds every node (2 to
+16 of them), lines 13 and 15 run in one pass over the rows
+(:mod:`repro_torch.kernels.xhat_mix`: the CUDA kernel on the card, its
+plain version on the CPU); otherwise column chunk by column chunk. A fault
 plan (:mod:`repro_torch.core.faults`) freezes the rows of skipped nodes in
 the iterate and the optimizer state (the old rows are kept across the
 in-place update and put back), repairs ``W_r`` over the surviving links,
@@ -59,9 +62,9 @@ everything else is done in place, in column chunks or one row at a time:
   of the grads row, so backward accumulates in place;
 * the optimizer steps in place and leaves the grads buffer free, which then
   holds ``diff``;
-* the trigger norms, the x_hat update and the mixing run over column chunks
-  (every expression is elementwise per column, so chunking keeps the
-  reference's float32 expressions);
+* the trigger norms run over column chunks, and so do the x_hat update and
+  the mixing where no one pass takes them (every expression is elementwise
+  per column, so chunking keeps the reference's float32 expressions);
 * the kernel runs in its ensemble mode on ``diff`` viewed as tiles: no zero
   x_hat and no x_hat_new are allocated;
 * the generic operator's temporaries are one row's, and its q overwrites
@@ -96,6 +99,8 @@ from repro_torch.dist.comm import NodeComm
 from repro_torch.dist.sharding import fsdp_split
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.sign_topk import BLOCK
+from repro_torch.kernels.xhat_mix import MAX_NODES as XHAT_MIX_MAX_NODES
+from repro_torch.kernels.xhat_mix import xhat_mix
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import init_params, lm_loss, param_shapes
@@ -356,6 +361,12 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     shift_terms = ([(s, float(shift_row[s])) for s in range(1, n)
                     if shift_row[s] > 0.0]
                    if shift_row is not None else None)
+    # one rank holding every row of 2 to 16 nodes mixes them in one pass
+    # (kernels/xhat_mix.py); a mesh's ranks mix chunk by chunk, fetching
+    # the rows they lack from the ranks that hold them
+    fused_mix = comm.node_ax == 1 and 2 <= n <= XHAT_MIX_MAX_NODES
+    roll = ((float(shift_row[0]), shift_terms)
+            if shift_terms is not None else None)
     ws = torch.tensor(plan.ws, dtype=torch.float32)          # (R, n, n) host
     ws_dev = ws.to(dev)
     degs_dev = torch.tensor(plan.degrees, dtype=torch.float32, device=dev)
@@ -520,7 +531,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
                 W_r, deg_r, live = flt.apply(ws[r], t, state["sync_rounds"])
                 W_r, deg_r = W_r.to(dev), deg_r.to(dev)
                 trig = trig & live.to(dev)
-            trigf = trig[lo:lo + m].to(torch.float32)[:, None]
+            trigf = trig[lo:lo + m].to(torch.float32)
             if on_sync is not None:
                 on_sync(diff, {"t": t, "sync_round": state["sync_rounds"],
                                "W": W_r, "deg": deg_r, "live": live,
@@ -529,11 +540,17 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
             q = compress(diff, t)
         with spans.span("sparq.sync.mix"):
             comm.seconds = 0.0
-            for c in _column_chunks(D_pad):
-                xe_new = (x_hat[:, c].to(torch.float32)
-                          + q[:, c] * trigf).to(xhat_dt)      # lines 11, 13
-                x_hat[:, c] = xe_new
-                params[:, c] += gamma * mix_term(xe_new, W_r)
+            if fused_mix:
+                # lines 13 and 15 in one pass over the rows (the kernel on
+                # the card, its plain version on the CPU)
+                xhat_mix(x_hat, params, q, trigf, gamma,
+                         w=None if roll is not None else W_r, roll=roll)
+            else:
+                for c in _column_chunks(D_pad):
+                    xe_new = (x_hat[:, c].to(torch.float32)
+                              + q[:, c] * trigf[:, None]).to(xhat_dt)
+                    x_hat[:, c] = xe_new                  # lines 11, 13
+                    params[:, c] += gamma * mix_term(xe_new, W_r)
             exchange_s.append(comm.seconds)
         del q
         with spans.span("sparq.sync.bits"):
@@ -546,6 +563,8 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
             # every row is compressed; only the triggered ones are sent
             spans.count("sparq.rows_compressed", m)
             spans.count("sparq.rows_sent", trig[lo:lo + m].sum())
+            if fused_mix:
+                spans.count("sparq.rows_mixed_kernel", m)
 
     def train_step(state: State, batch: Mapping[str, Any]
                    ) -> Tuple[State, Dict[str, Any]]:

@@ -28,6 +28,12 @@ flip moves the element by exactly one level, norm / s. So an element passes
   ``QSGD_BOUNDARY_ULPS`` ulps of ``level`` of a boundary.
 
 Any other mismatch fails; the boundary flips are counted.
+
+The x_hat update and mixing (:func:`compare_xhat_mix`): x_hat bit for bit
+(one rounding of ``x_hat + q * trig``, the same on both sides); x bit for
+bit in roll mode, where the kernel keeps the eager order and rounding of
+every product and sum, and within :func:`xhat_mix_tolerance` in dense mode,
+where the sum over the nodes runs in another order than ``tensordot``'s.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.kernels.qsgd import qsgd_blocks, qsgd_blocks_plain
 from repro_torch.kernels.sign_topk import (BLOCK, _row_threshold,
                                            sign_topk_blocks,
                                            sign_topk_blocks_plain)
+from repro_torch.kernels.xhat_mix import xhat_mix, xhat_mix_plain
 
 F32_RTOL = 1e-5
 BF16_RTOL = 2.0 ** -7
@@ -436,3 +443,108 @@ def check_qsgd_unbiased(device: torch.device, draws: int = 256, s: int = 64
     if gap >= 0.15:
         raise AssertionError(f"qsgd mean over {draws} keys is {gap} from x")
     return gap
+
+
+# ----------------------------------------------------------------- x_hat mix
+
+# the kernel's nodes exercised by the card tests and the K1 probes: the two
+# smallest, the MoE cells' 4 and the largest instantiation
+XHAT_MIX_NODES = (2, 3, 4, 16)
+XHAT_MIX_GAMMA = 0.3
+U32 = 2.0 ** -24         # float32's unit roundoff
+
+
+def xhat_mix_plan(mode: str, n: int, device: torch.device,
+                  gen: Optional[torch.Generator] = None
+                  ) -> Tuple[Optional[torch.Tensor], Optional[Tuple]]:
+    """``(w, roll)`` of a probe: in roll mode a circulant with shifts 1 and
+    n - 1 (and 2 with a small weight from n = 4), ``w`` None; in dense mode
+    a row-stochastic ``(n, n)`` W drawn from ``gen``, ``roll`` None."""
+    if mode == "roll":
+        terms = {1: 0.25}
+        terms[n - 1] = terms.get(n - 1, 0.0) + 0.35
+        if n >= 4:
+            terms[2] = 0.0625
+        return None, (1.0 - sum(terms.values()), tuple(sorted(terms.items())))
+    w = torch.rand((n, n), generator=gen, device=device)
+    return w / w.sum(dim=1, keepdim=True), None
+
+
+def xhat_mix_trig(n: int, device: torch.device) -> torch.Tensor:
+    """Every third node untriggered (node 1 first), the rest triggered."""
+    return torch.tensor([0.0 if i % 3 == 1 else 1.0 for i in range(n)],
+                        device=device)
+
+
+def make_xhat_mix_case(mode: str, n: int, width: int, dtype: torch.dtype,
+                       device: torch.device, seed: int = 0) -> Tuple:
+    """``(x_hat, x, q, trig, w, roll)`` of one case: x_hat ~ 0.5 N(0, 1) in
+    ``dtype``, x ~ N(0, 1), q ~ 0.1 N(0, 1), all ``(n, width)``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x_hat = (0.5 * torch.randn((n, width), generator=gen, device=device)
+             ).to(dtype)
+    x = torch.randn((n, width), generator=gen, device=device)
+    q = 0.1 * torch.randn((n, width), generator=gen, device=device)
+    w, roll = xhat_mix_plan(mode, n, device, gen)
+    return x_hat, x, q, xhat_mix_trig(n, device), w, roll
+
+
+def xhat_mix_tolerance(want_x: torch.Tensor, xe: torch.Tensor,
+                       w: torch.Tensor, gamma: float) -> torch.Tensor:
+    """How far dense mode's x may lie from the plain version's, per
+    coordinate. Each side sums the n products ``W_ij xe_j`` in its own
+    order (the kernel a fused multiply-add chain, ``tensordot`` its GEMM's)
+    and subtracts ``xe_i``: each lies within ``(n + 1) u`` of the exact
+    term relative to ``sum_j |W_ij| |xe_j| + |xe_i|`` (u = 2^-24), so the
+    two within twice that, and gamma's product adds a rounding of each;
+    adding the update to x rounds once more, one spacing of x on each
+    side."""
+    n = xe.shape[0]
+    mag = torch.tensordot(w.abs(), xe.abs(), dims=1) + xe.abs()
+    a = want_x.abs()
+    spacing = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return 2.0 * spacing + gamma * 2.0 * (n + 2) * U32 * mag
+
+
+def compare_xhat_mix(before: Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor],
+                     got: Tuple[torch.Tensor, torch.Tensor],
+                     w: Optional[torch.Tensor], roll: Optional[Tuple],
+                     gamma: float, spec=None) -> float:
+    """Hold the kernel's ``(x_hat, x)`` against the plain version run on
+    ``before`` = (x_hat, x, q, trig), the inputs as they were: x_hat bit for
+    bit in both modes; x bit for bit in roll mode and within
+    :func:`xhat_mix_tolerance` in dense mode. Returns the largest absolute
+    difference of x."""
+    xh, x, q, trig = (t.clone() for t in before)
+    xhat_mix_plain(xh, x, q, trig, gamma, w=w, roll=roll)
+    got_xh, got_x = got
+    what = f"xhat_mix kernel != plain version ({spec})"
+    if not torch.equal(got_xh, xh):
+        bad = int((got_xh != xh).any(dim=0).sum())
+        raise AssertionError(f"{what}: x_hat differs in {bad} columns")
+    err = (got_x - x).abs()
+    if roll is not None:
+        if not torch.equal(got_x, x):
+            raise AssertionError(f"{what}: x differs by up to "
+                                 f"{float(err.max()):.3e} in roll mode")
+    else:
+        tol = xhat_mix_tolerance(x, xh.to(torch.float32), w, gamma)
+        if bool(torch.any(~(err <= tol))):
+            raise AssertionError(f"{what}: x beyond the dense tolerance, "
+                                 f"max err {float(err.max()):.3e}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_xhat_mix(mode: str, n: int, width: int, dtype: torch.dtype,
+                   device: torch.device, seed: int = 0) -> float:
+    """One case through :func:`repro_torch.kernels.xhat_mix.xhat_mix` (the
+    kernel, for CUDA tensors) against the plain version; returns the
+    largest absolute difference of x."""
+    x_hat, x, q, trig, w, roll = make_xhat_mix_case(mode, n, width, dtype,
+                                                    device, seed)
+    before = tuple(t.clone() for t in (x_hat, x, q, trig))
+    xhat_mix(x_hat, x, q, trig, XHAT_MIX_GAMMA, w=w, roll=roll)
+    return compare_xhat_mix(before, (x_hat, x), w, roll, XHAT_MIX_GAMMA,
+                            spec=(mode, n, width, dtype))

@@ -33,13 +33,16 @@ The spans, their parents by nesting (``/``), and the counters::
       sparq.sync.diff                 diff, trigger norms, mask, on_sync
       sparq.sync.compress             the compressor over the rank's rows
       sparq.sync.mix                  the x_hat update and the mixing
-      sparq.sync.mix/comm.fetch       the rows a shift or dense plan reads
+      sparq.sync.mix/comm.fetch       the rows a mesh's rank fetches for a
+                                      shift or dense plan
       sparq.sync.bits                 bits, rounds and triggers
 
     moe.choices, moe.dropped          routed choices (T k) and those past
                                       their expert's capacity, forward only
     sparq.rows_compressed             rows the sync compressed
     sparq.rows_sent                   of them, the triggered rows
+    sparq.rows_mixed_kernel           rows the sync mixed in one pass
+                                      (kernels/xhat_mix.py: one rank)
 """
 from __future__ import annotations
 

@@ -37,7 +37,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro.models.config import INPUT_SHAPES as J_SHAPES  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.dist import serve  # noqa: E402
-from repro_torch.kernels import qsgd, sign_topk  # noqa: E402
+from repro_torch.kernels import qsgd, sign_topk, xhat_mix  # noqa: E402
 from repro_torch.launch import dryrun, op_walk  # noqa: E402
 from repro_torch.models.config import INPUT_SHAPES, InputShape  # noqa: E402
 
@@ -197,8 +197,9 @@ def test_sign_topk_on_meta_is_charged_its_closed_form(monkeypatch):
 
 def test_meta_step_counts_like_the_cpu_step_but_for_the_kernel():
     """The reduced main path on meta and on the CPU: the same products;
-    on the CPU the compression is the plain version's operations, on meta
-    one charge of the kernel's closed form."""
+    on the CPU the compression and the x_hat update and mixing are the
+    plain versions' operations, on meta one charge of each kernel's closed
+    form."""
     from repro_torch.dist.sparq_dist import DistSparqConfig, build_sparq
     cfg = get_config("qwen1.5-0.5b").reduced(n_layers=1, d_model=128,
                                               vocab=256)
@@ -214,9 +215,14 @@ def test_meta_step_counts_like_the_cpu_step_but_for_the_kernel():
         got[dev] = w.result()
     assert got["meta"]["dot_flops"] == got["cpu"]["dot_flops"] > 0
     tiles = 4 * step.d_pad // 1024
-    assert got["meta"]["kernels"] == {"sign_topk": {
-        "launches": 1,
-        "bytes": sign_topk.work_bytes(tiles, torch.float32, False)}}
+    assert got["meta"]["kernels"] == {
+        "sign_topk": {
+            "launches": 1,
+            "bytes": sign_topk.work_bytes(tiles, torch.float32, False)},
+        "xhat_mix": {
+            "launches": 1,
+            "bytes": xhat_mix.work_bytes(4, step.d_pad, torch.float32,
+                                         False)}}
     assert got["cpu"]["kernels"] == {}
 
 

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.analysis import kernel_lint as kl  # noqa: E402
 from repro_torch.analysis.__main__ import main as analysis_main  # noqa: E402
 from repro_torch.kernels.qsgd import qsgd_blocks  # noqa: E402
+from repro_torch.kernels import xhat_mix  # noqa: E402
 from repro_torch.kernels.sign_topk import sign_topk_blocks  # noqa: E402
 
 
@@ -65,7 +66,8 @@ def test_launch_entry_without_its_probe_functions_is_a_k1_error(csrc_copy):
 def test_wrapper_that_accepts_a_ragged_view_is_a_k1_error():
     lax = kl.Probe("qsgd", "qsgd_kernel", kl.qsgd,
                    lambda x: None)
-    out, _ = kl.lint_registry(probes=(kl.PROBES[0], lax), program="t")
+    out, _ = kl.lint_registry(probes=(kl.PROBES[0], lax, *kl.PROBES[2:]),
+                              program="t")
     assert ids(out) == [("K1", "error")] and "(tiles, 1024)" in \
         out[0].message
 
@@ -197,13 +199,15 @@ def cuda():
 
 @pytest.mark.cuda
 def test_k1_card_leg(cuda):
-    before = (sign_topk_blocks.launches, qsgd_blocks.launches)
+    before = (sign_topk_blocks.launches, qsgd_blocks.launches,
+              xhat_mix.xhat_mix.launches)
     out, meta = kl.lint_coverage_card(cuda, program="t")
     assert out == []
     assert set(meta) == {"sign_topk_f32", "sign_topk_bf16", "qsgd_f32",
-                         "qsgd_bf16"}
+                         "qsgd_bf16", *xhat_mix.ENTRIES.values()}
     # probe launches bypass the wrappers: the paths' counts stay theirs
-    assert (sign_topk_blocks.launches, qsgd_blocks.launches) == before
+    assert (sign_topk_blocks.launches, qsgd_blocks.launches) == before[:2]
+    assert xhat_mix.xhat_mix.launches == before[2]
 
 
 @pytest.mark.cuda

@@ -96,9 +96,9 @@ def test_spans_of_a_step_and_their_nesting(n):
             "sparq.local_step": STEPS, "sparq.sync": STEPS,
             "sparq.sync.diff": STEPS, "sparq.sync.compress": STEPS,
             "sparq.sync.mix": STEPS, "sparq.sync.bits": STEPS,
-            # a ring of 4 mixes by row rolls, one column chunk here; 2
-            # nodes by the dense product, which reads no other row
-            "comm.fetch": STEPS if n > 2 else 0}
+            # one rank holds every row and mixes them in one pass: only a
+            # mesh's ranks fetch rows
+            "comm.fetch": 0}
     assert set(want) == set(PARENTS)
     assert names == Counter({k: v for k, v in want.items() if v})
     for i, (name, _, _) in enumerate(marks):
