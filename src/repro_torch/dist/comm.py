@@ -49,8 +49,14 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
+
 TIMEOUT_S = 900.0      # a group's deadline on each collective, seconds
 STAGE_ELEMS = 1 << 22  # elements per staged chunk of the fsdp sum
+# the row exchanges' counter and span (repro_torch.spans): the bytes a rank
+# posts to send plus those it receives, and the ops' launch and waits
+FETCH_BYTES = "comm.fetch_bytes"
+FETCH_WAIT = "comm.fetch.wait"
 
 
 def backend_for(device_type: str, ranks_per_host: int) -> str:
@@ -225,7 +231,18 @@ class NodeComm(_Staged):
     """The engine's collectives over a ``(node, fsdp, model)`` mesh (None:
     one process, every function the identity). Rows ``[node_index * m,
     (node_index + 1) * m)`` of every node-stacked buffer live on this rank;
-    ``seconds`` accumulates the host time spent in the row exchanges."""
+    ``seconds`` accumulates the host time spent in the row exchanges. Under
+    NCCL that is the posting alone: a wait there orders the device's stream
+    behind the transfer and returns at once, so the transfer's own time is
+    the device time of the ``comm.fetch.wait`` span (:data:`FETCH_WAIT`).
+
+    With tracing on, each exchange adds to the counter
+    :data:`FETCH_BYTES` the bytes this rank posts to send plus the bytes
+    it receives, counted where the ops are built (nothing on one rank), and
+    runs the launch of its ops and the waits on them inside the span
+    :data:`FETCH_WAIT`: NCCL launches a group's transfer kernel when
+    ``batch_isend_irecv`` closes the group, and a kernel's device time
+    belongs to the span open at its launch."""
 
     def __init__(self, mesh: Any, device: torch.device):
         self.device = device
@@ -281,9 +298,13 @@ class NodeComm(_Staged):
         out = torch.empty((self.node_ax * m, c), dtype=x.dtype,
                           device=x.device)
         land = self._landing(out, "gather_in")
-        dist.all_gather(list(land.view(self.node_ax, m, c).unbind(0)),
-                        self._stage_out(x.contiguous(), "gather_out"),
-                        group=self.node_group)
+        src = self._stage_out(x.contiguous(), "gather_out")
+        # the block to each of the other ranks, and theirs from each
+        spans.count(FETCH_BYTES, 2 * (self.node_ax - 1) * src.numel()
+                    * src.element_size())
+        with spans.span(FETCH_WAIT):
+            dist.all_gather(list(land.view(self.node_ax, m, c).unbind(0)),
+                            src, group=self.node_group)
         if self.staged:
             out.copy_(land)
         self.seconds += time.perf_counter() - t0
@@ -326,8 +347,12 @@ class NodeComm(_Staged):
                                       self.peers[to], self.node_group,
                                       tag=tag))
         if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
+            spans.count(FETCH_BYTES, sum(op.tensor.numel()
+                                         * op.tensor.element_size()
+                                         for op in ops))
+            with spans.span(FETCH_WAIT):
+                for work in dist.batch_isend_irecv(ops):
+                    work.wait()
         if self.staged:
             for o, land in zip(outs, lands, strict=True):
                 o.copy_(land)

@@ -25,12 +25,14 @@ circulant plan (ring, complete, ...) with no faults mixes by row rolls,
 anything else by the dense product. When one rank holds every node (2 to
 16 of them), lines 13 and 15 run in one pass over the rows
 (:mod:`repro_torch.kernels.xhat_mix`: the CUDA kernel on the card, its
-plain version on the CPU); otherwise column chunk by column chunk. A fault
-plan (:mod:`repro_torch.core.faults`) freezes the rows of skipped nodes in
-the iterate and the optimizer state (the old rows are kept across the
-in-place update and put back), repairs ``W_r`` over the surviving links,
-mutes offline nodes and charges live links only. Every node's forward and
-backward still run: the reported loss is the mean over all n nodes.
+plain version on the CPU); otherwise column chunk by column chunk (at
+least ``COLUMN_CHUNK`` columns and ``MIX_CHUNK_ELEMS`` elements of the
+rank's rows a chunk). A fault plan (:mod:`repro_torch.core.faults`)
+freezes the rows of skipped nodes in the iterate and the optimizer state
+(the old rows are kept across the in-place update and put back), repairs
+``W_r`` over the surviving links, mutes offline nodes and charges live
+links only. Every node's forward and backward still run: the reported loss
+is the mean over all n nodes.
 
 Without a mesh the whole node ensemble lives on the one device. With a
 ``(node, fsdp, model)`` mesh (:mod:`repro_torch.dist.sharding`) the
@@ -109,6 +111,11 @@ from repro_torch.optim.sgd import Optimizer, resolve_optimizer
 State = Dict[str, Any]
 Slice = Tuple[Tuple[str, ...], int, int, Tuple[int, ...]]
 COLUMN_CHUNK = 1 << 22   # columns per chunk of the sync's elementwise passes
+# elements of the rank's rows per chunk of the chunked x_hat update and
+# mixing: a mesh's rank of one row exchanges 64 MB messages, not 16 MB (NCCL
+# moved 16 MB ones far below NVLink's rate), and m >= 4 rows keep
+# COLUMN_CHUNK
+MIX_CHUNK_ELEMS = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,9 +289,9 @@ def grad_views(row: torch.Tensor, grad_row: torch.Tensor,
     return tree
 
 
-def _column_chunks(width: int) -> Iterator[slice]:
-    for lo in range(0, width, COLUMN_CHUNK):
-        yield slice(lo, min(width, lo + COLUMN_CHUNK))
+def _column_chunks(width: int, cols: int = COLUMN_CHUNK) -> Iterator[slice]:
+    for lo in range(0, width, cols):
+        yield slice(lo, min(width, lo + cols))
 
 
 def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
@@ -321,9 +328,10 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     sync's ``t``, ``sync_round``, mixing matrix ``W`` and degrees ``deg``
     (repaired under faults), ``live`` (None without faults), the gated
     triggers ``trig`` of all n nodes and the rank's ``rows``.
-    ``train_step.exchange_s`` lists each sync's seconds in the row
-    exchanges. With tracing on (:mod:`repro_torch.spans`) each step and its
-    parts are spans, and each sync counts the rows it compressed and sent.
+    ``train_step.exchange_s`` lists each sync's host seconds in the row
+    exchanges (under NCCL the posting: see ``NodeComm``). With tracing on
+    (:mod:`repro_torch.spans`) each step and its parts are spans, and each
+    sync counts the rows it compressed and sent.
 
     ``device="meta"`` builds the engine on shapes without memory (the dry
     run, :mod:`repro_torch.launch.dryrun`): start from
@@ -365,6 +373,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
     # (kernels/xhat_mix.py); a mesh's ranks mix chunk by chunk, fetching
     # the rows they lack from the ranks that hold them
     fused_mix = comm.node_ax == 1 and 2 <= n <= XHAT_MIX_MAX_NODES
+    mix_cols = max(COLUMN_CHUNK, MIX_CHUNK_ELEMS // m)
     roll = ((float(shift_row[0]), shift_terms)
             if shift_terms is not None else None)
     ws = torch.tensor(plan.ws, dtype=torch.float32)          # (R, n, n) host
@@ -546,7 +555,7 @@ def build_sparq(cfg: ModelConfig, dcfg: DistSparqConfig,
                 xhat_mix(x_hat, params, q, trigf, gamma,
                          w=None if roll is not None else W_r, roll=roll)
             else:
-                for c in _column_chunks(D_pad):
+                for c in _column_chunks(D_pad, mix_cols):
                     xe_new = (x_hat[:, c].to(torch.float32)
                               + q[:, c] * trigf[:, None]).to(xhat_dt)
                     x_hat[:, c] = xe_new                  # lines 11, 13

@@ -69,6 +69,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke-test config")
     ap.add_argument("--nodes", type=int, default=0, help="override n_nodes")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override n_layers (the model's depth)")
     ap.add_argument("--batch-per-node", type=int, default=2)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--H", type=int, default=5)
@@ -235,6 +237,8 @@ def _configs(args: argparse.Namespace):
         cfg = cfg.reduced()
     if args.nodes:
         cfg = dataclasses.replace(cfg, n_nodes=args.nodes)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dcfg = DistSparqConfig(
         H=args.H, frac=args.frac, lr=decaying(args.lr, 100.0),
         threshold=constant(args.threshold), momentum=args.momentum,

@@ -4,7 +4,7 @@ Re-declared here because importing ``repro.models.config`` runs
 ``repro/models/__init__.py``, which imports jax. The fields, defaults and
 ``reduced()`` are the reference's, so a configuration means the same thing
 in both packages; so are the serve workloads' ``InputShape`` and
-``INPUT_SHAPES``.
+``INPUT_SHAPES``. ``PORT_ONLY`` lists the fields the reference lacks.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ class ModelConfig:
     qkv_bias: bool = False           # qwen1.5
     qk_norm: bool = False            # chameleon
     norm: str = "rmsnorm"            # rmsnorm | layernorm
+    norm_eps: float = 1e-5           # deepseek-moe-16b publishes 1e-6
     act: str = "swiglu"              # swiglu | gelu | relu2 (minitron/nemotron)
     rope_pct: float = 1.0            # stablelm-2 uses 0.25
     rope_theta: float = 10000.0
@@ -142,6 +143,22 @@ class ModelConfig:
             n_nodes=4,
             remat=False,
         )
+
+
+# fields the reference's ModelConfig lacks, with the value that means what
+# the reference does (its norms take 1e-5)
+PORT_ONLY = {"norm_eps": 1e-5}
+
+
+def reference_fields(cfg: ModelConfig) -> dict:
+    """``cfg``'s fields as the reference's ``ModelConfig`` has them: each
+    of ``PORT_ONLY`` left out where it holds the reference's value (one
+    the reference cannot express stays, so the two never compare equal)."""
+    d = dataclasses.asdict(cfg)
+    for k, v in PORT_ONLY.items():
+        if d[k] == v:
+            del d[k]
+    return d
 
 
 @dataclasses.dataclass(frozen=True)

@@ -51,8 +51,8 @@ def dense_init(key: torch.Tensor, shape: Tuple[int, ...],
 # ---------------------------------------------------------------- norms
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               eps: float = 1e-5, tp: Optional[tpm.TP] = None
-               ) -> torch.Tensor:
+               tp: Optional[tpm.TP] = None) -> torch.Tensor:
+    eps = cfg.norm_eps
     xf = x.to(torch.float32)
     d = x.shape[-1]
     scale = tpm.whole(p["scale"], d, tp).to(torch.float32)

@@ -35,6 +35,8 @@ The spans, their parents by nesting (``/``), and the counters::
       sparq.sync.mix                  the x_hat update and the mixing
       sparq.sync.mix/comm.fetch       the rows a mesh's rank fetches for a
                                       shift or dense plan
+      .../comm.fetch/comm.fetch.wait  the launch of its sends and receives
+                                      and the waits on them: the transfer
       sparq.sync.bits                 bits, rounds and triggers
 
     moe.choices, moe.dropped          routed choices (T k) and those past
@@ -43,6 +45,10 @@ The spans, their parents by nesting (``/``), and the counters::
     sparq.rows_sent                   of them, the triggered rows
     sparq.rows_mixed_kernel           rows the sync mixed in one pass
                                       (kernels/xhat_mix.py: one rank)
+    comm.fetch_bytes                  bytes a mesh's rank posts to send plus
+                                      those it receives in the row
+                                      exchanges (dist/comm.py; none on one
+                                      rank)
 """
 from __future__ import annotations
 

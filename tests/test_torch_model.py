@@ -35,7 +35,9 @@ from repro_torch.configs.registry import get_config as tget  # noqa: E402
 from repro_torch.data.synthetic import TokenPipeline  # noqa: E402
 from repro_torch.dist.sparq_dist import DistSparqConfig, build_sparq  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.models.config import reference_fields  # noqa: E402
 
 SMALL = dict(n_layers=1, d_model=128, vocab=256)
 
@@ -60,12 +62,12 @@ def _walk(tree, path=()):
 
 def test_config_equals_reference_field_for_field():
     j, t = jget("qwen1.5-0.5b"), tget("qwen1.5-0.5b")
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert dataclasses.asdict(j) == reference_fields(t)
     assert dataclasses.asdict(j.reduced(**SMALL)) == \
-        dataclasses.asdict(t.reduced(**SMALL))
+        reference_fields(t.reduced(**SMALL))
     # every reference config is served, field for field; an unknown arch
     # is still refused
-    assert dataclasses.asdict(tget("deepseek-v3-671b")) == \
+    assert reference_fields(tget("deepseek-v3-671b")) == \
         dataclasses.asdict(jget("deepseek-v3-671b"))
     with pytest.raises(ValueError, match="unknown arch"):
         tget("gpt-2")
@@ -254,3 +256,30 @@ def test_unported_families_raise():
     assert ("shared_attn", "attn", "wq") in keys
     entries(dataclasses.replace(tc, family="moe", n_experts=4, moe_top_k=2,
                                 moe_d_ff=64))
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_norm_eps_is_the_configs(norm):
+    """The norms take the configuration's ``norm_eps``; at its default,
+    1e-5, they are the reference's, and a config at another value keeps the
+    field, so it never compares equal to a reference config."""
+    _, tc = _cfgs(norm=norm)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 5, tc.d_model, generator=g) * 0.02
+    p = {"scale": torch.rand(tc.d_model, generator=g) + 0.5,
+         "bias": torch.randn(tc.d_model, generator=g)}
+
+    def plain(eps):
+        if norm == "layernorm":
+            y = (x - x.mean(-1, keepdim=True)) * torch.rsqrt(
+                x.var(-1, keepdim=True, unbiased=False) + eps)
+            return y * p["scale"] + p["bias"]
+        ms = (x * x).mean(-1, keepdim=True)
+        return x * torch.rsqrt(ms + eps) * p["scale"]
+    assert tc.norm_eps == 1e-5 and "norm_eps" not in reference_fields(tc)
+    assert torch.equal(tlayers.apply_norm(tc, p, x), plain(1e-5))
+    c6 = dataclasses.replace(tc, norm_eps=1e-6)
+    y6 = tlayers.apply_norm(c6, p, x)
+    assert torch.equal(y6, plain(1e-6))
+    assert not torch.allclose(y6, plain(1e-5), rtol=1e-3)
+    assert reference_fields(c6)["norm_eps"] == 1e-6

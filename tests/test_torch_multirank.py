@@ -13,7 +13,8 @@ Tolerances:
 * ``fsdp = 1`` (rows on the node axis, model replicas): losses and every
   row bit for bit, for the shift plan fetching rows from one or two ranks,
   dense mixing, faults with a time-varying plan, the generic path and
-  momentum;
+  momentum, and a MoE of deepseek-moe-16b's pattern (one dense and six MoE
+  layers, tiny widths) with one node a rank;
 * ``fsdp = 2``: the per-node batch is split and its gradient summed over
   the group, so the float32 sums run in another order: losses within
   ``1e-4`` relative, x_hat beyond ``5e-4`` on at most 8 entries of a tile
@@ -74,6 +75,15 @@ def _cfg(n):
                                n_nodes=n, compute_dtype="float32")
 
 
+def _moe7(n):
+    """deepseek-moe-16b's pattern at depth 7: one dense and six MoE layers,
+    tiny widths."""
+    return dataclasses.replace(
+        get_config("deepseek-moe-16b").reduced(n_layers=7, d_model=64,
+                                               vocab=128),
+        n_nodes=n, compute_dtype="float32")
+
+
 def _dcfg(case):
     return DistSparqConfig(**{**dict(
         H=3, frac=0.1, use_kernel=True, variant="ring",
@@ -81,12 +91,12 @@ def _dcfg(case):
 
 
 def _trajectory(n, case, mesh=None, steps=STEPS, start=0, save=None,
-                restore=None, rows_of=None):
+                restore=None, rows_of=None, cfg=_cfg):
     """``steps`` steps of ``case`` at ensemble ``n`` from x^0 (or from the
     checkpoint ``restore`` at step ``start``) through the CLI's loop,
     saving at ``SAVE_AT`` to ``save``; returns the per-step channels and
     the rank's final rows."""
-    init_fn, step, _ = build_sparq(_cfg(n), _dcfg(case), device="cpu",
+    init_fn, step, _ = build_sparq(cfg(n), _dcfg(case), device="cpu",
                                    mesh=mesh)
     rows = rows_of(step) if rows_of else None
     if restore is None:
@@ -153,12 +163,14 @@ def serve_ranks(rank, cfg, toks, steps):
 
 def _four_ranks(rank, ckpt_dir):
     """Four ranks: the ring at n = 4 over (node 4), one row per rank, with
-    float32 scores for the reference's comparison; fsdp 2 and model-2
-    replicas; the 2-rank checkpoint restored over (node 4)."""
+    float32 scores for the reference's comparison, and the MoE of depth 7;
+    fsdp 2 and model-2 replicas; the 2-rank checkpoint restored over
+    (node 4)."""
     out = {}
     tattn.chunked_attention = F32_SCORES
     out["ring_f32"] = _trajectory(4, "ring", _mesh(4))
     tattn.chunked_attention = F32_SCORES.func
+    out["moe7"] = _trajectory(4, "ring", _mesh(4), cfg=_moe7)
     out["faults"] = _trajectory(4, "faults", _mesh(4))
     out["fsdp"] = _trajectory(2, "ring", _mesh(2))
     out["fsdp"]["coords"] = sharding.coordinates(_mesh(2))
@@ -243,6 +255,16 @@ def test_four_ranks_equal_one_process(four):
     _assert_exact([r["ring_f32"] for r in four], _one(4, "ring", True))
     assert [r["ring_f32"]["rows"] for r in four] == \
         [(0, 1), (1, 2), (2, 3), (3, 4)]
+
+
+def test_moe_of_depth_seven_one_node_a_rank_equals_one_process(four):
+    """One dense and six MoE layers, one node on each of four ranks: every
+    row, loss, bit count and trigger count as one process gives them."""
+    ranks = [r["moe7"] for r in four]
+    assert [r["rows"] for r in ranks] == [(0, 1), (1, 2), (2, 3), (3, 4)]
+    want = _trajectory(4, "ring", cfg=_moe7)
+    assert want["triggers"][-1] > 0
+    _assert_exact(ranks, want)
 
 
 def test_model_axis_replicas_equal_one_process(four):

@@ -1,7 +1,9 @@
 """The spans and counters of the flat engine's train step
 (``repro_torch.spans``) on a tiny MoE configuration with a sync every step:
 their names and nesting, that tracing off leaves no trace, that tracing
-changes no bit of the state, and that the counters equal plain counts."""
+changes no bit of the state, and that the counters equal plain counts; on a
+ring of four gloo ranks, one node each, the row exchange's span and byte
+counter."""
 import dataclasses
 from collections import Counter
 
@@ -12,7 +14,9 @@ import torch
 from repro_torch import spans
 from repro_torch.configs.registry import get_config
 from repro_torch.core import schedule, triggers
+from repro_torch.dist import comm, sharding
 from repro_torch.dist.sparq_dist import DistSparqConfig, build_sparq
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import moe
 
 STEPS = 2
@@ -30,14 +34,16 @@ PARENTS = {"sparq.step": {None},
            "sparq.sync.compress": {"sparq.sync"},
            "sparq.sync.mix": {"sparq.sync"},
            "comm.fetch": {"sparq.sync.mix"},
+           "comm.fetch.wait": {"comm.fetch"},
            "sparq.sync.bits": {"sparq.sync"}}
 
 
-def _run(n=2, on=True, threshold=None, remat=True, blocks=1):
+def _run(n=2, on=True, threshold=None, remat=True, blocks=1, mesh=False):
     """STEPS steps at H = 1 of a two-layer MoE (one dense, one MoE layer)
-    under the host profiler, with a log of every ``moe.route`` call.
-    Returns the state, the spans ``(name, start, end)``, the counters,
-    the route log ``(slot, cap)`` and the config."""
+    under the host profiler, with a log of every ``moe.route`` call; with
+    ``mesh``, this rank's rows over a ``(node, fsdp 1, model 1)`` mesh of
+    the process group. Returns the state, the spans ``(name, start,
+    end)``, the counters, the route log ``(slot, cap)`` and the config."""
     cfg = dataclasses.replace(
         get_config("deepseek-moe-16b").reduced(n_layers=2, d_model=64,
                                                vocab=128),
@@ -46,7 +52,9 @@ def _run(n=2, on=True, threshold=None, remat=True, blocks=1):
     dcfg = DistSparqConfig(H=1, variant="ring", frac=0.25, use_kernel=True,
                            lr=schedule.fixed(0.05),
                            threshold=threshold or triggers.zero())
-    init_fn, step, _ = build_sparq(cfg, dcfg, device="cpu")
+    grid = sharding.train_mesh(make_production_mesh(device_type="cpu"),
+                               cfg) if mesh else None
+    init_fn, step, _ = build_sparq(cfg, dcfg, device="cpu", mesh=grid)
     state = init_fn()
     rng = np.random.default_rng(0)
     batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
@@ -98,7 +106,7 @@ def test_spans_of_a_step_and_their_nesting(n):
             "sparq.sync.mix": STEPS, "sparq.sync.bits": STEPS,
             # one rank holds every row and mixes them in one pass: only a
             # mesh's ranks fetch rows
-            "comm.fetch": 0}
+            "comm.fetch": 0, "comm.fetch.wait": 0}
     assert set(want) == set(PARENTS)
     assert names == Counter({k: v for k, v in want.items() if v})
     for i, (name, _, _) in enumerate(marks):
@@ -141,3 +149,35 @@ def test_rows_sent_are_the_triggers(c0):
     assert counts["sparq.rows_compressed"] == STEPS * 2
     assert counts["sparq.rows_sent"] == int(state["triggers"]) == \
         (STEPS * 2 if c0 == 0.0 else 0)
+
+
+def _ring_rank(rank):
+    """One of four gloo ranks, one node each: ``_run``'s steps over the
+    mesh, spans on."""
+    state, marks, counts, _, _ = _run(n=4, mesh=True)
+    return {"marks": marks, "counts": counts,
+            "row_bytes": state["params"][0].numel() * 4}
+
+
+@pytest.fixture(scope="module")
+def ring_of_four():
+    return comm.spawn(_ring_rank, 4, timeout_s=120.0, deadline_s=120.0)
+
+
+def test_fetch_bytes_are_four_rows_a_sync_on_a_ring(ring_of_four):
+    """Each sync sends the rank's row to both ring neighbours and takes
+    theirs (one column chunk at this width): four rows' bytes; one rank
+    holding every row exchanges none."""
+    for r in ring_of_four:
+        assert r["counts"]["comm.fetch_bytes"] == STEPS * 4 * r["row_bytes"]
+    _, _, counts, _, _ = _run(n=4)
+    assert counts.get("comm.fetch_bytes", 0) == 0
+
+
+def test_fetch_wait_sits_inside_fetch(ring_of_four):
+    for r in ring_of_four:
+        marks = r["marks"]
+        names = Counter(name for name, _, _ in marks)
+        assert names["comm.fetch"] == names["comm.fetch.wait"] == STEPS
+        for i, (name, _, _) in enumerate(marks):
+            assert _parent(marks, i) in PARENTS[name], name

@@ -3,6 +3,7 @@ the generic path, the fault and time-varying-plan flags with their effect,
 ``--devices`` on the CPU, ``--lint``'s audit of the configuration, and the
 rule that nothing drops to the CPU or to a plain version on its own."""
 import ast
+import dataclasses
 import math
 import os
 import subprocess
@@ -39,6 +40,17 @@ def test_train_entry_runs_on_cpu():
     want = 2 * (2 * 4 + trig * step.payload_bits)
     assert float(state["bits"]) == pytest.approx(want, rel=1e-6)
     assert not state["params"][:, step.d_model_total:].any()
+
+
+@pytest.mark.parametrize("layers", [2, 7])
+def test_layers_flag_sets_the_depth(layers):
+    """``--layers`` overrides the depth and leaves every width: deepseek-
+    moe-16b keeps its leading dense layer and the rest are MoE layers."""
+    cfg = train.configs(["--arch", "deepseek-moe-16b", "--layers",
+                         str(layers)])[0]
+    full = train.configs(["--arch", "deepseek-moe-16b"])[0]
+    assert (cfg.n_layers, cfg.first_k_dense) == (layers, 1)
+    assert cfg == dataclasses.replace(full, n_layers=layers)
 
 
 @pytest.mark.parametrize("flags,passes", [
