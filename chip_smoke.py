@@ -15,7 +15,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    every tile; the sync's x_hat update and mixing (``xhat_mix``) at the
    benchmark cells' row shapes, (4, 1,091,315,712) in roll mode and (2,
    1,644,367,872) in dense mode, held against the plain version on three
-   column slabs and timed beside it; then the flat-buffer engine on a
+   column slabs and timed beside it; MoE routing's tables (``moe_route``)
+   bit for bit against the plain version on ``parity.MOE_ROUTE_CASES``,
+   then timed at the cells' 4,096 x 6 and 2,048 x 6 choices of 64 experts
+   beside its byte bound, the plain version's eager chain, the former
+   outer-dimension scan alone and an inner-dimension scan of the
+   transposed one-hots (a yardstick the port never calls); then the
+   flat-buffer engine on a
    small float32 model, its CUDA kernel path against its plain path on the
    CPU;
 3. the paths, each driven with every launch count set to 0 just before and
@@ -74,7 +80,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
       vocab 102,400) cut to one dense and one MoE layer, 4 nodes, the main
       path's flags through the train entry: SignTopK twice, bits against
       the reckoning, every step's dropped choices and aux, the recomputed
-      routing equal to the forward's, the kernel timed on the last sync's
+      routing equal to the forward's, one routing kernel launch a routing,
+      the kernel timed on the last sync's
       real diff and held against its plain version on every tile of it
       chunk by chunk, then 3 more steps of the run profiled, and the kernel
       timed at the same shape on Gaussian tiles; stablelm-1.6b at
@@ -228,6 +235,10 @@ PLAIN_ROWS = 1 << 16          # tiles per call of the plain version
 XHAT_MIX_SHAPES = (("dsmoe16b-d2n4", 4, 1_091_315_712),
                    ("stablelm1.6b-n2", 2, 1_644_367_872))
 MIX_SLAB = 1 << 22
+# MoE routing timed at the benchmark cells' groups: (name, tokens, k,
+# experts, capacity) of dsmoe16b-d2n4.train and .sync
+MOE_ROUTE_SHAPES = (("dsmoe16b-d2n4.train", 4096, 6, 64, 480),
+                    ("dsmoe16b-d2n4.sync", 2048, 6, 64, 240))
 MAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--nodes", "4", "--use-kernel",
              "--steps", "6", "--H", "3", "--batch-per-node", "2",
              "--seq-len", "128", "--log-every", "1", "--device", "cuda"]
@@ -285,6 +296,22 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, match: str = "") -> float:
+    """Mean device time a call of ``fn`` over ``reps`` calls under the
+    profiler (device activity only), after a warm-up: of the kernels whose
+    name holds ``match``, or of every kernel, copy and set."""
+    fn()
+    torch.cuda.synchronize()
+    P = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[P.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages() if match in e.key)
+    return us / reps / 1e3
 
 
 def with_arg(argv, flag, value):
@@ -942,6 +969,72 @@ def phase_xhat_mix(torch, dev):
     return out
 
 
+def phase_moe_route(torch, dev):
+    """MoE routing's tables: the kernel against the plain version on every
+    case of ``parity.MOE_ROUTE_CASES`` (bit for bit), then at each of
+    :data:`MOE_ROUTE_SHAPES`, on the top-k of a softmax's stable sort read
+    in place as ``route`` reads it, the kernel's mean device time over 200
+    launches (the profiler's) beside its byte bound and its call's host-paced
+    time (CUDA events over back-to-back calls, the wrapper included), the
+    plain version's device time (the former eager chain) over 20, the
+    former outer-dimension int64 scan alone, and an inner-dimension scan of
+    the transposed, contiguous one-hots, one PyTorch call the port never
+    makes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import moe_route as mr
+    from repro_torch.kernels import parity
+    t0 = time.perf_counter()
+    dropped = [parity.check_moe_route(spec, dev, seed=3)
+               for spec in parity.MOE_ROUTE_CASES]
+    torch.cuda.synchronize()
+    log(f"moe_route kernel == plain version on "
+        f"{len(parity.MOE_ROUTE_CASES)} cases (slots, owners, counts bit "
+        f"for bit; {sum(dropped)} dropped choices among them) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out = {}
+    for name, t, k, e, cap in MOE_ROUTE_SHAPES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        probs = torch.softmax(torch.randn((t, e), generator=gen, device=dev),
+                              dim=-1)
+        ids = torch.sort(probs, dim=-1, descending=True,
+                         stable=True).indices[:, :k]
+        launches = mr.moe_route.launches
+        got = mr.moe_route(ids, e, cap)
+        torch.cuda.synchronize()
+        if mr.moe_route.launches != launches + 1:
+            raise AssertionError(f"moe_route at {name}: "
+                                 f"{mr.moe_route.launches - launches} "
+                                 f"launches, want 1")
+        drops = parity.compare_moe_route(ids, None, e, cap, got, spec=name)
+        ms = device_ms(torch, lambda: mr.moe_route(ids, e, cap), 200,
+                       "moe_route_kernel")
+        call_ms = time_ms(torch, lambda: mr.moe_route(ids, e, cap), 200)
+        plain_ms = device_ms(torch, lambda: mr.moe_route_plain(ids, e, cap),
+                             20)
+        onehot = F.one_hot(ids.reshape(-1), e)
+        outer_ms = device_ms(torch, lambda: torch.cumsum(onehot, dim=0), 20)
+        onehot_t = onehot.t().contiguous()
+        library_ms = device_ms(torch, lambda: torch.cumsum(onehot_t, dim=1),
+                               200)
+        nbytes = mr.work_bytes(t, k, e, cap)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"moe_route at {name}'s {t} x {k} choices of {e} (capacity "
+            f"{cap}, {drops} dropped), device times: kernel_ms {ms:.4f} "
+            f"(a call paced by the host {call_ms:.4f}); plain_ms "
+            f"{plain_ms:.4f} (the former chain), of it the outer-dimension "
+            f"scan {outer_ms:.4f}; library_ms {library_ms:.4f} (cumsum of "
+            f"the transposed one-hots, an inner-dimension scan); bound_ms "
+            f"{bound:.6f} (bytes: {nbytes} B)")
+        out[name] = {"tokens": t, "k": k, "experts": e, "cap": cap,
+                     "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                     "outer_scan_ms": outer_ms, "library_ms": library_ms,
+                     "bound_ms": bound, "bytes": nbytes, "dropped": drops}
+        del onehot, onehot_t, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def sign_topk_bound_ms(rows) -> float:
     """SignTopK's byte bound at (rows, 1024) float32 in ensemble mode: the
     diff read once, q and the per-tile scale written once
@@ -994,6 +1087,7 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
     import functools
     import numpy as np
     from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.kernels.moe_route import moe_route
     from repro_torch.kernels.sign_topk import BLOCK, sign_topk_blocks
     from repro_torch.models import attention, moe
     from repro_torch.configs import registry
@@ -1020,9 +1114,11 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     alloc0 = alloc_counts(torch)
+    route0 = moe_route.launches
     with depth2, RouteLog() as routes:
         result = train.run(moe_args, on_sync=on_sync)
     alloc1 = alloc_counts(torch)
+    out["route_launches"] = moe_route.launches - route0
     counts["moe_trainer"] = read_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     state, step, cfg = result["state"], result["train_step"], result["cfg"]
@@ -1060,6 +1156,9 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
         raise AssertionError(f"moe trainer: {len(calls)} route calls, want "
                              f"{6 * n * 2} (6 steps x {n} nodes x forward "
                              f"and recomputation)")
+    if out["route_launches"] != len(calls):
+        raise AssertionError(f"moe trainer: {out['route_launches']} "
+                             f"moe_route launches for {len(calls)} routings")
     for si in range(6):
         dropped, auxs = [], []
         for i in range(n):
@@ -1076,6 +1175,8 @@ def phase_archs(torch, dev, train, counts, zero_counts, read_counts):
             f"of {t_count} x {k} choices dropped at capacity "
             f"{moe.capacity(cfg, t_count)}: {dropped}; aux {auxs}")
     steady = s_step[1:5]
+    log(f"moe trainer: {out['route_launches']} moe_route launches, one a "
+        f"routing")
     log(f"moe trainer: {launches} SignTopK launches, {trig} triggers, bits "
         f"{got_bits:.6e} == reckoned {want_bits:.6e}; device peak "
         f"{peak:.2f} GB")
@@ -2243,6 +2344,11 @@ def phase_audits(torch, dev, train, counts, zero_counts, read_counts, D):
     if errors:
         raise AssertionError(f"K1/K3: {len(errors)} error(s)")
     for entry, r in m1.items():
+        if "choices" in r:
+            log(f"K1 {entry}: {r['choices']} choices a group in "
+                f"{r['groups']} groups, blocks of {r['block']} threads; "
+                f"every element written, guards untouched, == plain")
+            continue
         log(f"K1 {entry}: grid cap {r['grid_cap']} x {r['block']} threads; "
             f"tiles {r['tiles']} written, guard tile untouched, == plain "
             f"(max abs err {r['max_abs_err']:.3e}, {r['boundary_flips']} "
@@ -2980,6 +3086,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mix_rec = phase_xhat_mix(torch, dev)
+    route_rec = phase_moe_route(torch, dev)
 
     # the flat-buffer engine, kernel path on the card vs plain path on the
     # CPU, on a small float32 model from the same weights: the repo's own
@@ -3667,7 +3774,16 @@ def main() -> int:
         "launches": main_mix_launches, "bound_by": "bytes",
         "library_ms": None,
         "library_note": "no one PyTorch call updates x_hat and mixes",
-        "at_shapes": mix_rec, "audits": audits("xhat_mix")}]}
+        "at_shapes": mix_rec, "audits": audits("xhat_mix")}, {
+        "name": "moe_route", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_route.cu",
+        "replaces": "src/repro_torch/models/moe.py route()'s eager integer "
+                    "chain (src/repro/models/moe.py:75-80; no Pallas "
+                    "kernel)",
+        "launches": moe_rec["route_launches"], "bound_by": "bytes",
+        "library_note": "torch.cumsum over the transposed one-hots, an "
+                        "inner-dimension scan the port never calls",
+        "at_shapes": route_rec, "audits": audits("moe_route")}]}
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(report))
     print(card_line())

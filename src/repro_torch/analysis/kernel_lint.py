@@ -12,7 +12,8 @@ rule has a leg that reads the source on the CPU and a leg that asks the card.
   belongs to a probe's ``ENTRIES`` and exports ``<entry>_launch_config`` and
   ``<entry>_attributes``, and the wrapper refuses anything but a ``(tiles,
   1024)`` view (``kernels/ops.py`` pads the tail), or rows of whole tiles
-  (``xhat_mix``). An unregistered kernel is an error, as an un-probed
+  (``xhat_mix``), or anything but int64 ids of at most 8 choices a token
+  (``moe_route``). An unregistered kernel is an error, as an un-probed
   ``pallas_call`` is (``kernel_lint.py:312``).
 * **K1, card leg.** Each probe and dtype launches, through the C entry, on
   ``1``, ``warps - 1``, ``grid_cap * warps + 1`` and ``3 * grid_cap * warps +
@@ -23,7 +24,13 @@ rule has a leg that reads the source on the CPU and a leg that asks the card.
   version (:mod:`repro_torch.kernels.parity`'s tolerances). ``xhat_mix``
   updates its rows in place, at n = 2, 3, 4 and 16 rows of that many tiles
   and a row stride one guard tile longer: the rows must equal the plain
-  version's and every guard tile keep its NaN.
+  version's and every guard tile keep its NaN. ``moe_route`` walks choices,
+  not tiles: both entries on 1, 31 and ``CHUNK + 1`` choices and on three
+  groups of three blocks in one launch (:data:`MOE_ROUTE_PROBES`), every
+  output filled with a sentinel and one guard element past it; every
+  element must be written, every guard left alone, the block counts equal
+  the plain counts of each block's chunk and the tables the plain
+  version's, bit for bit.
 * **K3, closed form.** From the source's constants: the kernel's static
   shared memory must fit the 48 KiB a block gets without opting in, the
   launch passes no dynamic shared memory, and ``__launch_bounds__(threads,
@@ -55,7 +62,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.analysis.rules import WARNING, Finding, finding
-from repro_torch.kernels import parity, qsgd, sign_topk, xhat_mix
+from repro_torch.kernels import moe_route, parity, qsgd, sign_topk, xhat_mix
 
 CSRC = Path(__file__).resolve().parents[1] / "kernels" / "csrc"
 STATIC_SHARED_LIMIT = 48 * 1024     # per block without an opt-in
@@ -84,6 +91,8 @@ PROBES: Tuple[Probe, ...] = (
           lambda x: xhat_mix._check(x, x.clone(), x.clone(),
                                     torch.ones(x.shape[0]), None,
                                     (1.0, ()))),
+    Probe("moe_route", "moe_route_kernel", moe_route,
+          lambda x: moe_route._check(x, 64, 8, None)),
 )
 
 
@@ -411,11 +420,113 @@ def _xhat_mix_case(probe, key, n: int, nodes: int, gen, dev):
     return None, err, 0
 
 
+# the routing probe's groups, tokens and choices a token: 1 choice, a warp
+# less one, one block's chunk past one block, and three groups of two
+# blocks and a ragged tail in one launch, the last with the fsdp offsets
+MOE_ROUTE_PROBES = ((1, 1, 1), (1, 31, 1), (1, moe_route.CHUNK + 1, 1),
+                    (3, (2 * moe_route.CHUNK + 5) // 6 + 1, 6))
+_SENTINEL = -7
+
+
+def _moe_route_case(probe, groups: int, t: int, k: int, seed: int, dev):
+    """Both entries through the C interface on one probe shape, at 64
+    experts and a capacity near the mean load (the skewed ids drop some):
+    every output filled with a sentinel and one guard element past it; the
+    counting launch's block counts equal the plain counts of each block's
+    chunk, the ranking launch's tables equal the plain version's, every
+    element written and every guard left alone."""
+    mod = probe.wrapper
+    e, n = 64, t * k
+    cap = max(8, n // e // 8 * 8)
+    spec = ("probe", groups, t, k, e, cap, "low" if groups > 1 else None)
+    ids, before = parity.make_moe_route_case(spec, dev, seed)
+    ids3 = ids if ids.dim() == 3 else ids[None]
+    nb = mod.blocks(n)
+    slots = e * cap + 1
+
+    def out(size, dtype):
+        return torch.full((size + 1,), _SENTINEL, dtype=dtype, device=dev)
+    bc = out(groups * nb * e, torch.int32)
+    slot, tfs = out(groups * n, torch.int64), out(groups * slots, torch.int32)
+    counts = out(groups * e, torch.int32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib, fn = mod.entry("count")
+        code = fn(ids3.data_ptr(), ids3.stride(0), ids3.stride(1), groups, t,
+                  k, e, nb, bc.data_ptr(), stream)
+        kernels.check(lib, code, f"{probe.source} probe")
+        lib, fn = mod.entry("rank")
+        code = fn(ids3.data_ptr(), ids3.stride(0), ids3.stride(1), groups, t,
+                  k, e, cap, nb, kernels.ptr(before),
+                  bc.data_ptr() if nb > 1 else None, slot.data_ptr(),
+                  tfs.data_ptr(), counts.data_ptr(), stream)
+        kernels.check(lib, code, f"{probe.source} probe")
+    torch.cuda.synchronize(dev)
+    for name, buf in (("block counts", bc), ("slot", slot),
+                      ("token_for_slot", tfs), ("counts", counts)):
+        if int(buf[-1]) != _SENTINEL:
+            return f"{name}: the guard element past the view was written"
+        left = int((buf[:-1] == _SENTINEL).sum())
+        if left:
+            return f"{name}: {left} elements keep the sentinel"
+    flat = ids3.reshape(groups, n)
+    want_bc = torch.stack([torch.stack([
+        torch.bincount(flat[g, b * mod.CHUNK:(b + 1) * mod.CHUNK],
+                       minlength=e) for b in range(nb)]) for g in range(groups)])
+    if not torch.equal(bc[:-1].view(groups, nb, e).long(), want_bc):
+        return "block counts != the plain counts of each block's chunk"
+    lead = ids.shape[:-2]
+    parity.compare_moe_route(
+        ids, before, e, cap, (slot[:-1].view(*lead, t, k),
+                              tfs[:-1].view(*lead, slots),
+                              counts[:-1].view(*lead, e)),
+        spec=(groups, t, k))
+    return None
+
+
+def _moe_route_coverage(probe, device, gen, program
+                        ) -> Tuple[List[Finding], Dict[str, Any]]:
+    """K1's card leg of the routing kernel: the grid of each probe shape
+    from ``_launch_config`` (one block a :data:`moe_route.CHUNK` of a
+    group's choices), then :func:`_moe_route_case`."""
+    out: List[Finding] = []
+    mod = probe.wrapper
+    choices = [t * k for _, t, k in MOE_ROUTE_PROBES]
+    rec = {"block": 0, "choices": choices,
+           "groups": [g for g, _, _ in MOE_ROUTE_PROBES]}
+    for key, entry in mod.ENTRIES.items():
+        for n in choices:
+            with torch.cuda.device(device):
+                grid, block = mod.launch_config(key, n)
+            rec["block"] = block
+            if (grid, block) != (mod.blocks(n), mod.BLOCK):
+                out.append(finding(
+                    "K1", f"{entry}: grid {grid} x {block} for {n} choices, "
+                          f"want {mod.blocks(n)} x {mod.BLOCK}",
+                          f"{program}:{entry}"))
+    for groups, t, k in MOE_ROUTE_PROBES:
+        seed = int(torch.randint(1 << 30, (1,), generator=gen,
+                                 device=device))
+        try:
+            bad = _moe_route_case(probe, groups, t, k, seed, device)
+        except AssertionError as e:
+            bad = f"kernel != plain version: {e}"
+        if bad:
+            out.append(finding(
+                "K1", f"moe_route on {groups} x {t * k} choices: {bad}",
+                f"{program}:moe_route"))
+    return out, {entry: dict(rec) for entry in mod.ENTRIES.values()}
+
+
 # each source's case and its modes, by the label a finding gives them
 _CASES = {"sign_topk": (_sign_topk_case, {"": False, " (fused)": True}),
           "qsgd": (_qsgd_case, {"": False}),
           "xhat_mix": (_xhat_mix_case, {f" (n {n})": n for n in
                                         parity.XHAT_MIX_NODES})}
+
+
+# sources whose card leg walks shapes of their own, not tiles
+_COVERAGE = {"moe_route": _moe_route_coverage}
 
 
 def tile_counts(grid_cap: int, warps: int) -> List[int]:
@@ -434,6 +545,11 @@ def lint_coverage_card(device: torch.device, probes: Sequence[Probe] = PROBES,
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     for p in probes:
+        if p.source in _COVERAGE:
+            found, rec = _COVERAGE[p.source](p, device, gen, program)
+            out += found
+            meta.update(rec)
+            continue
         case, modes = _CASES[p.source]
         mod = p.wrapper
         for dtype, entry in mod.ENTRIES.items():

@@ -34,6 +34,9 @@ The x_hat update and mixing (:func:`compare_xhat_mix`): x_hat bit for bit
 bit in roll mode, where the kernel keeps the eager order and rounding of
 every product and sum, and within :func:`xhat_mix_tolerance` in dense mode,
 where the sum over the nodes runs in another order than ``tensordot``'s.
+
+MoE routing's tables (:func:`check_moe_route`): integers, so the slots, the
+slot owners and the counts bit for bit.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.kernels import moe_route as mr
 from repro_torch.kernels import ops
 from repro_torch.kernels.qsgd import qsgd_blocks, qsgd_blocks_plain
 from repro_torch.kernels.sign_topk import (BLOCK, _row_threshold,
@@ -548,3 +552,82 @@ def check_xhat_mix(mode: str, n: int, width: int, dtype: torch.dtype,
     xhat_mix(x_hat, x, q, trig, XHAT_MIX_GAMMA, w=w, roll=roll)
     return compare_xhat_mix(before, (x_hat, x), w, roll, XHAT_MIX_GAMMA,
                             spec=(mode, n, width, dtype))
+
+
+# ------------------------------------------------- MoE routing's tables
+
+# (name, groups, tokens, k, experts, capacity, before): the MoE cells'
+# routings (capacity factor 1.25), deepseek-v3's 256 experts top-8, one
+# token, T k = 7,007 (not a multiple of 32 or of a warp's run), every token
+# on the same k experts at capacity 8, the fsdp group's offsets, three
+# groups in one launch, and a group one block's chunk past one block (two
+# launches). before: None, "low" (up to a quarter of the capacity) or
+# "past" (some experts' offsets at or past the capacity)
+MOE_ROUTE_CASES = (
+    ("cells_train", 1, 4096, 6, 64, 480, None),
+    ("cells_sync", 1, 2048, 6, 64, 240, None),
+    ("deepseek_v3", 1, 1024, 8, 256, 40, None),
+    ("one_token", 1, 1, 6, 64, 8, None),
+    ("ragged", 1, 1001, 7, 64, 112, None),
+    ("same_experts", 1, 4096, 6, 64, 8, None),
+    ("before", 1, 4096, 6, 64, 480, "low"),
+    ("before_past", 1, 2048, 6, 64, 240, "past"),
+    ("groups", 3, 2048, 6, 64, 240, "low"),
+    ("two_blocks", 1, mr.CHUNK // 6 + 1, 6, 64, 8 * (mr.CHUNK // 512 + 2),
+     None),
+)
+
+
+def make_moe_route_case(spec: Tuple, device: torch.device, seed: int = 0
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(expert_idx, before)`` of one case: the top-k of a skewed score
+    over the experts (expert e's score lifted by 0.5 e / E, so the later
+    experts overflow first), kept as the sort leaves it: a ``[..., :k]``
+    view of the ``(..., T, E)`` ids, as ``route`` reads them; (T, k) for one
+    group, (groups, T, k) past it. Drawn with numpy, so every device gets
+    the same ids."""
+    name, groups, t, k, e, cap, before = spec
+    rng = np.random.default_rng(seed)
+    if name == "same_experts":
+        order = np.broadcast_to(np.arange(e), (groups, t, e)).copy()
+    else:
+        score = rng.random((groups, t, e)) + 0.5 * np.arange(e) / e
+        order = np.argsort(-score, axis=-1, kind="stable")
+    ids = torch.from_numpy(order).to(device)[..., :k]
+    off = None
+    if before is not None:
+        hi = cap // 4 if before == "low" else 2 * cap
+        off = torch.from_numpy(rng.integers(0, hi + 1, (groups, e))
+                               ).to(device)
+    if groups == 1:
+        ids = ids[0]
+        off = None if off is None else off[0].contiguous()
+    return ids, off
+
+
+def compare_moe_route(ids: torch.Tensor, before: Optional[torch.Tensor],
+                      n_experts: int, cap: int, got: Tuple, spec=None) -> int:
+    """Hold ``(slot, token_for_slot, counts)`` against the plain version on
+    the same ids, bit for bit. Returns the dropped choices."""
+    want = mr.moe_route_plain(ids, n_experts, cap, before)
+    for name, g, w in zip(("slot", "token_for_slot", "counts"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            bad = int((g != w).sum()) if g.shape == w.shape else "shape"
+            raise AssertionError(f"moe_route kernel != plain version "
+                                 f"({spec}): {name} differs ({bad})")
+    return int((want[0] == n_experts * cap).sum())
+
+
+def check_moe_route(spec: Tuple, device: torch.device, seed: int = 0
+                    ) -> int:
+    """One case through :func:`repro_torch.kernels.moe_route.moe_route`
+    (the kernel, for CUDA tensors) and its counting pass against the plain
+    version; returns the dropped choices."""
+    ids, before = make_moe_route_case(spec, device, seed)
+    e, cap = spec[4], spec[5]
+    got = mr.moe_route(ids, e, cap, before)
+    counts = mr.moe_route_counts(ids, e)
+    if not torch.equal(counts, got[2]):
+        raise AssertionError(f"moe_route_counts != the ranking's counts "
+                             f"({spec})")
+    return compare_moe_route(ids, before, e, cap, got, spec)

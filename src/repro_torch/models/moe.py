@@ -6,8 +6,10 @@ renormalized over the selected set, capacity-based dispatch by a gather into
 ``(E, C, D)`` and a combine back to the tokens (no ``(T, E, C)`` one-hot is
 materialized), and the switch-style load-balance auxiliary loss. Expert
 weights are stacked ``(E, D, F)``; the expert products are batched matrix
-products, which the reference too computes outside any Pallas kernel, so no
-kernel of the port is involved.
+products, which the reference too computes outside any Pallas kernel. The
+routing's integer tables (queue positions, slots, slot owners, counts) come
+from one hand-written pass on the card (``kernels/moe_route.py``), from its
+plain version, the reference's eager chain, on the CPU.
 
 Two orders that the reference leaves to XLA are fixed here:
 
@@ -30,6 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch import spans
 from repro_torch.core import prng
+from repro_torch.kernels.moe_route import (choice_share, moe_route,
+                                           moe_route_counts)
 from repro_torch.models import parallel as tpm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
@@ -111,18 +115,16 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
     # renormalized over the selected set
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    flat_expert = expert_idx.reshape(-1)                           # (T*k,)
-    choices = F.one_hot(flat_expert, e)                            # (T*k, E)
-
-    # load-balance aux (switch): E * sum_e f_e * P_e
+    # the slot tables (kernels/moe_route.py: each choice's queue position
+    # in (token, choice) order) and the load-balance aux (switch):
+    # E * sum_e f_e * P_e
     if group is None:
         cap = capacity(cfg, t_count)
-        before = 0
-        onehot = F.one_hot(expert_idx, e).to(torch.float32).sum(1)  # (T, E)
-        aux = e * torch.sum(onehot.mean(0) * probs.mean(0))
+        slot, token_for_slot, counts = moe_route(expert_idx, e, cap)
+        aux = e * torch.sum(choice_share(counts, t_count) * probs.mean(0))
     else:
-        counts = torch.cat([choices.sum(0),
-                            choices.new_tensor([t_count])])        # (E + 1,)
+        counts = torch.cat([moe_route_counts(expert_idx, e).to(torch.int64),
+                            expert_idx.new_tensor([t_count])])     # (E + 1,)
         every = group.all_gather(counts[None], 0)           # (ranks, E + 1)
         # a meta tensor (the dry run) holds no counts; the engine gives
         # every rank of its fsdp group an equal block of the tokens
@@ -135,27 +137,21 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
         p_all = group.all_reduce(p_own.detach())
         p_e = (p_all + group.size * (p_own - p_own.detach())) / t_all
         aux = e * torch.sum(f_e * p_e)
+        slot, token_for_slot, _ = moe_route(expert_idx, e, cap, before)
 
-    # position of each (token, choice) within its expert's queue
-    pos = torch.cumsum(choices, dim=0) - 1 + before                # (T*k, E)
-    pos_in_e = torch.gather(pos, 1, flat_expert[:, None])[:, 0]
-    # a choice past its expert's capacity goes to the overflow bin e * cap
-    slot = torch.where(pos_in_e < cap, flat_expert * cap + pos_in_e, e * cap)
-    token_ids = torch.arange(t_count, dtype=torch.int32,
-                             device=dev).repeat_interleave(k)
-    token_for_slot = torch.full((e * cap + 1,), t_count, dtype=torch.int32,
-                                device=dev).index_put((slot,), token_ids)
+    # each choice's gate at its slot; the dropped ones land in the overflow
+    # bin e * cap, cut off below with the tables' own
     gate_for_slot = torch.zeros((e * cap + 1,), dtype=torch.float32,
                                 device=dev).index_put(
-                                    (slot,), gate_vals.reshape(-1))
-    return (token_for_slot[:-1], gate_for_slot[:-1], aux, cap,
-            slot.view(t_count, k))
+                                    (slot.reshape(-1),), gate_vals.reshape(-1))
+    return token_for_slot[:-1], gate_for_slot[:-1], aux, cap, slot
 
 
 def _route_counted(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
                    group: Optional[tpm.Collectives] = None):
-    """:func:`route` in the ``moe.route`` span; while tracing, its choices
-    and the dropped ones are counted once a forward (not again in a
+    """:func:`route` in the ``moe.route`` span; while tracing, its choices,
+    the dropped ones and those the kernel placed (every choice on the card,
+    none on the CPU) are counted once a forward (not again in a
     checkpointed recompute)."""
     with spans.span("moe.route"):
         out = route(cfg, router_w, x, group=group)
@@ -163,6 +159,7 @@ def _route_counted(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor,
         cap, slot = out[3], out[4]
         spans.count("moe.choices", slot.numel())
         spans.count("moe.dropped", (slot == cfg.n_experts * cap).sum())
+        spans.count("moe.routed_kernel", slot.numel() if slot.is_cuda else 0)
     return out
 
 

@@ -41,6 +41,9 @@ The spans, their parents by nesting (``/``), and the counters::
 
     moe.choices, moe.dropped          routed choices (T k) and those past
                                       their expert's capacity, forward only
+    moe.routed_kernel                 of them, those the routing kernel
+                                      placed (kernels/moe_route.py: all on
+                                      the card, none on the CPU)
     sparq.rows_compressed             rows the sync compressed
     sparq.rows_sent                   of them, the triggered rows
     sparq.rows_mixed_kernel           rows the sync mixed in one pass

@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.analysis import kernel_lint as kl  # noqa: E402
 from repro_torch.analysis.__main__ import main as analysis_main  # noqa: E402
 from repro_torch.kernels.qsgd import qsgd_blocks  # noqa: E402
-from repro_torch.kernels import xhat_mix  # noqa: E402
+from repro_torch.kernels import moe_route, xhat_mix  # noqa: E402
 from repro_torch.kernels.sign_topk import sign_topk_blocks  # noqa: E402
 
 
@@ -200,14 +200,16 @@ def cuda():
 @pytest.mark.cuda
 def test_k1_card_leg(cuda):
     before = (sign_topk_blocks.launches, qsgd_blocks.launches,
-              xhat_mix.xhat_mix.launches)
+              xhat_mix.xhat_mix.launches, moe_route.moe_route.launches)
     out, meta = kl.lint_coverage_card(cuda, program="t")
     assert out == []
     assert set(meta) == {"sign_topk_f32", "sign_topk_bf16", "qsgd_f32",
-                         "qsgd_bf16", *xhat_mix.ENTRIES.values()}
+                         "qsgd_bf16", *xhat_mix.ENTRIES.values(),
+                         *moe_route.ENTRIES.values()}
     # probe launches bypass the wrappers: the paths' counts stay theirs
     assert (sign_topk_blocks.launches, qsgd_blocks.launches) == before[:2]
     assert xhat_mix.xhat_mix.launches == before[2]
+    assert moe_route.moe_route.launches == before[3]
 
 
 @pytest.mark.cuda
